@@ -1,7 +1,9 @@
 """PyTorch/CUDA port of ``akka_game_of_life_tpu``.
 
-The standalone simulator on one NVIDIA GPU: bit-packed binary Life-like
-rules stepped by a hand-written CUDA sweep (``csrc/packed_sweep.cu``), with
+The standalone simulator on one NVIDIA GPU: binary Life-like rules on
+bit-packed words, Generations and WireWorld on bit planes and
+Larger-than-Life on the dense board, stepped by hand-written CUDA kernels
+(``csrc/packed_sweep.cu``, ``gen_sweep.cu``, ``ltl_sweep.cu``), with
 on-device observation, digests and npz checkpoints compatible with the JAX
 package.  It imports ``torch`` and numpy, never ``jax`` nor the JAX package.
 

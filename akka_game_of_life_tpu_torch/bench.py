@@ -1,4 +1,4 @@
-"""Card facts, CUDA-event timing and the sweep's bound, plus a tile sweep.
+"""Card facts, CUDA-event timing and the kernels' bounds, plus a tile sweep.
 
 ``python -m akka_game_of_life_tpu_torch.bench [--depths 2,3,...]`` builds the
 packed-sweep kernel once per tile variant (``TILE_ROWS`` x ``STRIPS`` below,
@@ -83,6 +83,34 @@ def sweep_bound(h: int, nw: int, k: int, rule, int32_ops_per_s: float) -> Dict:
 
     bytes_ms = 2 * h * nw * 4 / HBM_BYTES_PER_S * 1e3
     ops_ms = ops_per_word_step(rule) * h * nw * k / int32_ops_per_s * 1e3
+    return _bound(bytes_ms, ops_ms)
+
+
+def gen_sweep_bound(m: int, h: int, nw: int, k: int, rule, int32_ops_per_s: float) -> Dict:
+    """The least time one k-generation plane sweep of m (h, nw) planes
+    could take: one read and one write of every plane over HBM, or the
+    plane step's LOP3/SHF instructions (``gen_sweep.ops_per_word_step``)
+    over the integer rate, whichever is larger."""
+    from akka_game_of_life_tpu_torch.ops.gen_sweep import ops_per_word_step
+
+    bytes_ms = 2 * m * h * nw * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_per_word_step(rule) * h * nw * k / int32_ops_per_s * 1e3
+    return _bound(bytes_ms, ops_ms)
+
+
+def ltl_bound(h: int, w: int, rule, int32_ops_per_s: float) -> Dict:
+    """The least time one LtL generation of an (h, w) uint8 board could
+    take: 2 B per cell (one read, one write) over HBM, or the step's
+    integer operations per cell (``ltl_sweep.ops_per_cell``) over the
+    integer rate, whichever is larger."""
+    from akka_game_of_life_tpu_torch.ops.ltl_sweep import ops_per_cell
+
+    bytes_ms = 2 * h * w / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops_per_cell(rule) * h * w / int32_ops_per_s * 1e3
+    return _bound(bytes_ms, ops_ms)
+
+
+def _bound(bytes_ms: float, ops_ms: float) -> Dict:
     return {
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",

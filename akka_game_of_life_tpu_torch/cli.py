@@ -51,8 +51,11 @@ def _run_parser(sub) -> argparse.ArgumentParser:
     p.add_argument(
         "--kernel",
         choices=list(KERNEL_CHOICES),
-        help="auto/pallas: the packed sweep (the CUDA kernel on cuda); "
-        "bitpack: the plain packed step; dense/matmul are not ported yet",
+        help="auto/pallas: the CUDA kernels on cuda (packed sweep for binary "
+        "rules, plane sweep for Generations/WireWorld, LtL step for "
+        "Larger-than-Life boxes; auto runs dense on widths not a multiple "
+        "of 32 and for the LtL diamond); bitpack: the plain packed/plane "
+        "step; dense: the plain dense stencil; matmul is not ported yet",
     )
     p.add_argument("--checkpoint-dir")
     p.add_argument("--checkpoint-every", type=int)

@@ -120,6 +120,19 @@ def digest_packed(
     return lanes
 
 
+def digest_planes(
+    planes: torch.Tensor, width: int, row0: int = 0, wordcol0: int = 0
+) -> torch.Tensor:
+    """Digest lanes of (m, h, words) Generations/WireWorld bit planes (LSB
+    plane first).  Exact by linearity: state = Σ_k 2^k·bit_k, so the board
+    digest is Σ_k (plane_k's binary digest << k), mod 2³²."""
+    total = torch.zeros(2, dtype=torch.int64, device=planes.device)
+    for k in range(planes.shape[0]):
+        part = digest_packed(planes[k], width, row0, wordcol0) << k
+        total = (total + part) & _MASK32
+    return total
+
+
 # -- host (np) twins -----------------------------------------------------------
 
 _NP_BLOCK_ROWS = 1024
@@ -174,6 +187,15 @@ def digest_packed_np(words: np.ndarray, width: int) -> np.ndarray:
                     lanes[lane] + int(mixed.sum(dtype=np.uint32))
                 ) & 0xFFFFFFFF
     return np.asarray(lanes, dtype=np.uint32)
+
+
+def digest_planes_np(planes: np.ndarray, width: int) -> np.ndarray:
+    """Host twin of :func:`digest_planes` ((m, h, words) uint32)."""
+    planes = np.asarray(planes, dtype=np.uint32)
+    lanes = np.zeros(2, dtype=np.uint32)
+    for k in range(planes.shape[0]):
+        lanes += digest_packed_np(planes[k], width) << np.uint32(k)
+    return lanes
 
 
 # -- merge / presentation ------------------------------------------------------

@@ -4,8 +4,9 @@ Counterpart of the npz ``CheckpointStore`` of
 ``akka_game_of_life_tpu/runtime/checkpoint.py``, byte-compatible with it: the
 same file names (``ckpt_<epoch:012d>.npz``), keys (``epoch``, ``shape``,
 ``packed``, ``board``, ``meta``) and layouts (1 = np.packbits of a binary
-board, 0 = dense uint8, 2 = (H, W/32) uint32 LSB-first words), so each package
-resumes the other's checkpoints.  Writes are atomic (tmp + fsync + rename);
+board, 0 = dense uint8, 2 = (H, W/32) uint32 LSB-first words, 3 = (m, H,
+W/32) Generations/WireWorld bit planes), so each package resumes the other's
+checkpoints.  Writes are atomic (tmp + fsync + rename);
 the newest ``keep`` epochs are kept.
 """
 
@@ -30,7 +31,8 @@ class Checkpoint:
     board: Optional[np.ndarray]  # None only when loaded with keep_packed=True
     rule: str
     meta: dict
-    # (H, W/32) uint32 words of a packed32 checkpoint loaded with keep_packed.
+    # (H, W/32) uint32 words, or (m, H, W/32) planes, of a packed checkpoint
+    # loaded with keep_packed.
     packed32: Optional[np.ndarray] = None
 
 
@@ -89,18 +91,27 @@ class CheckpointStore:
         rule: str,
         meta: Optional[dict] = None,
     ) -> Path:
-        """Save (H, W/32) uint32 LSB-first words as they left the device
-        (0.25 B/cell, never unpacked)."""
+        """Save a packed board as it left the device, never unpacked:
+        (H, W/32) uint32 LSB-first words of a binary rule (layout 2,
+        0.25 B/cell) or (m, H, W/32) bit planes of a Generations/WireWorld
+        rule (layout 3, LSB plane first, m derived from the rule)."""
         words = np.ascontiguousarray(words, dtype=np.uint32)
         h, w = shape
-        if words.shape != (h, w // 32):
-            raise ValueError(f"packed words {words.shape} != {(h, w // 32)}")
+        if words.ndim == 2:
+            expect, fmt = (h, w // 32), 2
+        else:
+            from akka_game_of_life_tpu_torch.ops.bitpack_gen import n_planes
+            from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
+
+            expect, fmt = (n_planes(resolve_rule(rule).states), h, w // 32), 3
+        if words.shape != expect:
+            raise ValueError(f"packed words {words.shape} != {expect}")
         return self._write_epoch(
             epoch,
             {
                 "epoch": np.int64(epoch),
                 "shape": np.asarray(shape, dtype=np.int64),
-                "packed": np.uint8(2),
+                "packed": np.uint8(fmt),
                 "board": words,
                 "meta": self._meta_blob(rule, meta),
             },
@@ -127,7 +138,8 @@ class CheckpointStore:
         self, epoch: Optional[int] = None, *, keep_packed: bool = False
     ) -> Checkpoint:
         """Load the newest (or the given) epoch.  With ``keep_packed=True`` a
-        packed32 checkpoint comes back as words (``board=None``)."""
+        packed checkpoint (layout 2 or 3) comes back as words or planes
+        (``board=None``)."""
         epochs = self._epochs()
         if not epochs:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -145,7 +157,7 @@ class CheckpointStore:
             meta = json.loads(bytes(z["meta"].tobytes()).decode())
             fmt = int(z["packed"])
             rule = meta.pop("rule")
-            if fmt == 2:
+            if fmt in (2, 3):
                 words = z["board"].copy()
                 if keep_packed:
                     return Checkpoint(
@@ -153,18 +165,17 @@ class CheckpointStore:
                         packed32=words,
                     )
                 from akka_game_of_life_tpu_torch.ops.bitpack import unpack_np
+                from akka_game_of_life_tpu_torch.ops.bitpack_gen import unpack_gen_np
 
-                board = unpack_np(words).reshape(shape)
+                unpack = unpack_np if fmt == 2 else unpack_gen_np
+                board = unpack(words).reshape(shape)
             elif fmt == 1:
                 n = int(np.prod(shape))
                 board = np.unpackbits(z["board"], count=n).reshape(shape)
             elif fmt == 0:
                 board = z["board"].reshape(shape)
             else:
-                raise ValueError(
-                    f"checkpoint layout {fmt} (Generations planes) is not "
-                    f"supported by the PyTorch port yet"
-                )
+                raise ValueError(f"unknown checkpoint layout {fmt}")
         return Checkpoint(
             epoch=int(epoch), board=board.astype(np.uint8), rule=rule, meta=meta
         )

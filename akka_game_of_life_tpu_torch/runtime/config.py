@@ -15,9 +15,11 @@ import json
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Tuple
 
-# The JAX package's kernel names.  auto/pallas step through the CUDA sweep,
-# bitpack through the plain packed step; dense and matmul wait for a later
-# port slice (the Simulation refuses them).
+# The JAX package's kernel names.  auto/pallas step through the CUDA kernels
+# (the packed sweep, the plane sweep, the LtL step; auto runs the dense
+# stencil on widths that are not a multiple of 32 and for the LtL diamond),
+# bitpack through the plain packed/plane step, dense through the plain dense
+# stencil; matmul waits for a later port slice (the Simulation refuses it).
 KERNEL_CHOICES = ("auto", "dense", "bitpack", "pallas", "matmul")
 
 

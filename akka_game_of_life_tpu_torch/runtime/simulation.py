@@ -1,16 +1,44 @@
 """Standalone simulation driver: config → board → stepper → observer.
 
-Counterpart of ``akka_game_of_life_tpu/runtime/simulation.py`` for one device
-and binary outer-totalistic rules on the packed layout.  The board lives on
-the device as (H, W/32) int32 words; every ``steps_per_call`` generations the
-run observes on the device (population, strided sample, probe window,
-digest) and checkpoints the packed words at ``checkpoint_every``.  A run
-resumes from the newest checkpoint in ``checkpoint_dir``.
+Counterpart of ``akka_game_of_life_tpu/runtime/simulation.py`` for one
+device.  The board lives on the device in one of three layouts, as in the
+JAX package:
+
+- ``words``: a binary radius-1 rule on a width that is a multiple of 32,
+  (H, W/32) int32 words;
+- ``planes``: a Generations or WireWorld rule on such a width, (m, H, W/32)
+  int32 bit planes, m = ceil(log2 S);
+- ``dense``: everything else — Larger-than-Life, odd widths, or an explicit
+  ``kernel=dense`` — one uint8 per cell.
+
+Every ``steps_per_call`` generations the run observes on the device
+(population of state 1, strided sample, probe window, digest) and
+checkpoints the layout it holds (words as layout 2, planes as layout 3,
+dense boards as layout 1/0) at ``checkpoint_every``.  A run resumes from
+the newest checkpoint in ``checkpoint_dir``, whichever package wrote it.
+
+Kernel choice (:meth:`Simulation._resolve_kernel`):
+
+=====================================  ===============  =====================
+rule                                   auto / pallas    explicit plain opt-in
+=====================================  ===============  =====================
+binary, width % 32 == 0                packed sweep     ``bitpack``
+Generations / WireWorld, width % 32    plane sweep      ``bitpack``
+LtL box                                LtL step         ``dense``
+LtL diamond                            plain dense (``auto``/``dense``; ``pallas`` raises)
+any rule, width not a multiple of 32   plain dense (``auto``; ``bitpack``/``pallas`` raise)
+=====================================  ===============  =====================
+
+``kernel=dense`` runs any rule on the dense layout; ``bitpack`` raises for
+LtL and ``matmul`` is not ported.  This differs from the JAX package's
+``auto`` on a TPU, which keeps Generations on the XLA plane scan and LtL on
+XLA: the results are equal bit for bit, and on the card the plain versions
+are no path at all, so ``auto`` takes the kernels.
 
 The device is the caller's choice: ``cuda`` unless ``device="cpu"`` is
-passed.  On a CUDA device the ``auto``/``pallas`` kernel steps through the
-hand-written CUDA sweep; a kernel that fails to build or launch raises.  On
-the CPU the same wrapper runs its plain version.  Nothing falls back.
+passed.  On a CUDA device the kernels step the board; one that fails to
+build or launch raises.  On the CPU the same wrappers run their plain
+versions.  Nothing falls back.
 """
 
 from __future__ import annotations
@@ -22,7 +50,15 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from akka_game_of_life_tpu_torch.ops import bitpack, digest as odigest, packed_sweep
+from akka_game_of_life_tpu_torch.models.registry import get_model
+from akka_game_of_life_tpu_torch.ops import (
+    bitpack,
+    bitpack_gen,
+    digest as odigest,
+    gen_sweep,
+    ltl_sweep,
+    packed_sweep,
+)
 from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
 from akka_game_of_life_tpu_torch.runtime.checkpoint import CheckpointStore
 from akka_game_of_life_tpu_torch.runtime.config import SimulationConfig
@@ -77,12 +113,12 @@ def initial_board(config: SimulationConfig) -> np.ndarray:
     return random_grid(config.shape, density=config.density, seed=config.seed)
 
 
-def initial_words(config: SimulationConfig) -> np.ndarray:
-    """The start board packed as (H, W/32) uint32 words.  A pattern board
-    packs only the rows the pattern touches, so a 65536² start costs its
-    512 MiB of words, not a 4 GiB dense board."""
+def _packed_start(config: SimulationConfig, pack: Callable) -> np.ndarray:
+    """The start board packed by ``pack`` (words or planes).  A pattern
+    board packs only the rows the pattern touches, so a 65536² start costs
+    its packed size, not a 4 GiB dense board."""
     if config.pattern is None:
-        return bitpack.pack_np(initial_board(config))
+        return pack(initial_board(config))
     pattern = _pattern(config)
     h, w = config.shape
     if pattern.shape[0] > h or pattern.shape[1] > w:
@@ -90,10 +126,20 @@ def initial_words(config: SimulationConfig) -> np.ndarray:
             f"pattern {pattern.shape} does not fit board {config.shape}"
         )
     y0, x0 = config.pattern_offset
-    strip = place(np.zeros((pattern.shape[0], w), np.uint8), pattern, (0, x0))
-    words = np.zeros((h, w // bitpack.LANE_BITS), dtype=np.uint32)
-    words[(np.arange(pattern.shape[0]) + y0) % h] = bitpack.pack_np(strip)
-    return words
+    strip = pack(place(np.zeros((pattern.shape[0], w), np.uint8), pattern, (0, x0)))
+    out = np.zeros(strip.shape[:-2] + (h, w // bitpack.LANE_BITS), dtype=np.uint32)
+    out[..., (np.arange(pattern.shape[0]) + y0) % h, :] = strip
+    return out
+
+
+def initial_words(config: SimulationConfig) -> np.ndarray:
+    """The start board packed as (H, W/32) uint32 words."""
+    return _packed_start(config, bitpack.pack_np)
+
+
+def initial_planes(config: SimulationConfig, states: int) -> np.ndarray:
+    """The start board packed as (m, H, W/32) uint32 bit planes."""
+    return _packed_start(config, lambda b: bitpack_gen.pack_gen_np(b, states))
 
 
 def _crosses(prev_epoch: int, epoch: int, every: int) -> bool:
@@ -114,6 +160,10 @@ class Simulation:
         self.device = resolve_device(device)
         self.rule = resolve_rule(config.rule)
         self.kernel = self._resolve_kernel()
+        if self.kernel in ("dense", "ltl_sweep"):
+            self.layout = "dense"
+        else:
+            self.layout = "words" if self.rule.is_binary else "planes"
         self.observer = observer or BoardObserver(
             render_every=config.render_every,
             render_max_cells=config.render_max_cells,
@@ -127,58 +177,100 @@ class Simulation:
         )
         self._steppers: Dict[int, Callable] = {}
         self.epoch = 0
-        expect = (config.height, config.width // bitpack.LANE_BITS)
+        h, w = config.shape
+        expect = {
+            "words": (h, w // bitpack.LANE_BITS),
+            "planes": (bitpack_gen.n_planes(self.rule.states), h, w // bitpack.LANE_BITS),
+            "dense": (h, w),
+        }[self.layout]
         if self.store is not None and self.store.latest_epoch() is not None:
-            ckpt = self.store.load(keep_packed=True)
+            ckpt = self.store.load(keep_packed=self.layout != "dense")
             if ckpt.packed32 is not None:
-                words = ckpt.packed32
+                payload = ckpt.packed32
             else:
                 if ckpt.board.shape != config.shape:
                     raise ValueError(
                         f"checkpoint shape {ckpt.board.shape} != config {config.shape}"
                     )
-                words = bitpack.pack_np(ckpt.board)
-            if words.shape != expect:
+                payload = self._pack(ckpt.board)
+            if payload.shape != expect:
                 raise ValueError(
-                    f"checkpoint packed shape {words.shape} != config {expect}"
+                    f"checkpoint {self.layout} shape {payload.shape} != config {expect}"
                 )
             self.epoch = ckpt.epoch
+        elif self.layout == "words":
+            payload = initial_words(config)
+        elif self.layout == "planes":
+            payload = initial_planes(config, self.rule.states)
         else:
-            words = initial_words(config)
-        self.board = bitpack.words_from_numpy(words, self.device)
+            payload = initial_board(config)
+        if self.layout == "dense":
+            self.board = torch.from_numpy(np.ascontiguousarray(payload, np.uint8)).to(self.device)
+        else:
+            self.board = bitpack.words_from_numpy(payload, self.device)
 
     def _resolve_kernel(self) -> str:
-        """``auto``/``pallas`` → the packed sweep (the CUDA kernel on a CUDA
-        device); ``bitpack`` → the plain packed step, as an explicit
-        opt-in.  Everything else belongs to a later slice of the port."""
-        cfg = self.config
-        if not (self.rule.is_binary and self.rule.is_totalistic):
+        """The stepper for this rule and width (module docstring table):
+        ``sweep``, ``gen_sweep`` or ``ltl_sweep`` (the CUDA kernels on a
+        CUDA device), or the plain ``bitpack`` and ``dense`` steppers."""
+        cfg, rule = self.config, self.rule
+        kernel = cfg.kernel
+        if kernel == "matmul":
             raise ValueError(
-                f"rule {self.rule} needs the Generations/WireWorld planes or "
-                f"the Larger-than-Life kernel, which the PyTorch port does "
-                f"not have yet; it runs binary radius-1 rules"
+                "kernel='matmul' (the banded matrix-multiply family) is not "
+                "ported yet; use auto, pallas, bitpack or dense"
             )
+        if rule.kind == "ltl":
+            if kernel == "bitpack":
+                raise ValueError(
+                    f"kernel=bitpack supports totalistic and wireworld rules "
+                    f"only; {rule} runs on kernel=dense (or kernel=pallas "
+                    f"for box neighborhoods)"
+                )
+            if rule.neighborhood != "box":
+                if kernel == "pallas":
+                    raise ValueError(
+                        "kernel=pallas for ltl supports box neighborhoods only "
+                        "(the diamond runs the cumsum path on kernel=dense)"
+                    )
+                return "dense"
+            return "dense" if kernel == "dense" else "ltl_sweep"
+        if kernel == "dense":
+            return "dense"
         if cfg.width % bitpack.LANE_BITS:
+            if kernel == "auto":
+                return "dense"
             raise ValueError(
-                f"the packed layout requires width % 32 == 0, got {cfg.width} "
-                f"(the dense stencil is not ported yet)"
+                f"kernel={kernel} requires width % 32 == 0, got {cfg.width}"
             )
-        if cfg.kernel in ("auto", "pallas"):
-            return "sweep"
-        if cfg.kernel == "bitpack":
+        if kernel == "bitpack":
             return "bitpack"
-        raise ValueError(
-            f"kernel={cfg.kernel!r} is not ported yet (the dense stencil and "
-            f"the matmul family come in a later slice); use auto, pallas or "
-            f"bitpack"
-        )
+        return "sweep" if rule.is_binary else "gen_sweep"
+
+    def _pack(self, board: np.ndarray) -> np.ndarray:
+        """A dense host board in this run's layout."""
+        if self.layout == "words":
+            return bitpack.pack_np(board)
+        if self.layout == "planes":
+            return bitpack_gen.pack_gen_np(board, self.rule.states)
+        return board
 
     def _stepper(self, k: int) -> Callable:
         if k not in self._steppers:
+            rule = self.rule
             if self.kernel == "sweep":
-                self._steppers[k] = packed_sweep.packed_multi_step_fn(self.rule, k)
+                run = packed_sweep.packed_multi_step_fn(rule, k)
+            elif self.kernel == "gen_sweep":
+                run = gen_sweep.gen_multi_step_fn(rule, k)
+            elif self.kernel == "ltl_sweep":
+                run = ltl_sweep.ltl_multi_step_fn(rule, k)
+            elif self.kernel == "bitpack" and self.layout == "words":
+                run = bitpack.packed_multi_step_fn(rule, k)
+            elif self.kernel == "bitpack":
+                run = bitpack_gen.gen_multi_step_fn(rule, k)
             else:
-                self._steppers[k] = bitpack.packed_multi_step_fn(self.rule, k)
+                run = get_model(rule).run(k)
+            self._steppers[k] = run
         return self._steppers[k]
 
     # -- core loop -----------------------------------------------------------
@@ -217,6 +309,25 @@ class Simulation:
             and self.epoch % cfg.render_every == 0
         )
 
+    def _population(self) -> int:
+        """Cells in state 1 (alive, or WireWorld's electron heads)."""
+        if self.layout == "dense":
+            return int((self.board == 1).sum())
+        words = self.board if self.layout == "words" else bitpack_gen.alive_plane(self.board)
+        return int(bitpack.population_rows(words).sum())
+
+    def _sample(self, sy: int, sx: int) -> np.ndarray:
+        """Every sy-th row and sx-th column of the board, as host uint8."""
+        if self.layout == "dense":
+            return self.board[::sy, ::sx].cpu().numpy()
+        sample = bitpack.sample_packed_core(sy, sx, self.config.width)
+        if self.layout == "words":
+            return sample(self.board).cpu().numpy()
+        view = sample(self.board[0])
+        for k in range(1, self.board.shape[0]):
+            view = view | (sample(self.board[k]) << k)
+        return view.cpu().numpy()
+
     def _observe(self, *, render: bool) -> None:
         """Population (always), a strided sample (at render cadence), the
         probe window and the digest, all computed on the device; the clock
@@ -225,12 +336,9 @@ class Simulation:
         cfg = self.config
         self._sync()
         t0 = time.perf_counter()
-        population = int(bitpack.population_rows(self.board).sum())
+        population = self._population()
         strides = sample_strides(cfg.shape, cfg.render_max_cells)
-        view = None
-        if render:
-            sample = bitpack.sample_packed_core(*strides, cfg.width)
-            view = sample(self.board).cpu().numpy()
+        view = self._sample(*strides) if render else None
         digest = self.board_digest() if cfg.obs_digest else None
         win = self.board_window(*cfg.probe_window) if self._probe_due(render) else None
         obs_seconds = time.perf_counter() - t0
@@ -248,24 +356,32 @@ class Simulation:
 
     def board_digest(self) -> int:
         """The 64-bit digest of the current board (~8 fetched bytes)."""
-        return odigest.value(odigest.digest_packed(self.board, self.config.width))
+        width = self.config.width
+        if self.layout == "words":
+            lanes = odigest.digest_packed(self.board, width)
+        elif self.layout == "planes":
+            lanes = odigest.digest_planes(self.board, width)
+        else:
+            lanes = odigest.digest_dense(self.board)
+        return odigest.value(lanes)
 
     def checkpoint(self) -> None:
-        """Save the packed words of the current epoch (synchronous)."""
+        """Save the board of the current epoch in its layout (synchronous)."""
         if self.store is None:
             raise RuntimeError("no checkpoint_dir configured")
         cfg = self.config
         meta = {"height": cfg.height, "width": cfg.width}
         if cfg.obs_digest:
             meta["digest"] = odigest.format_digest(self.board_digest())
+        rule = self.rule.rulestring()
         t0 = time.perf_counter()
-        self.store.save_packed32(
-            self.epoch,
-            bitpack.words_to_numpy(self.board),
-            cfg.shape,
-            self.rule.rulestring(),
-            meta=meta,
-        )
+        if self.layout == "dense":
+            self.store.save(self.epoch, self.board.cpu().numpy(), rule, meta=meta)
+        else:
+            self.store.save_packed32(
+                self.epoch, bitpack.words_to_numpy(self.board), cfg.shape, rule,
+                meta=meta,
+            )
         if cfg.metrics_every:
             print(
                 f"[profile] checkpoint@{self.epoch}: "
@@ -275,23 +391,35 @@ class Simulation:
             )
 
     def board_window(self, y0: int, y1: int, x0: int, x1: int) -> np.ndarray:
-        """A (y1-y0, x1-x0) uint8 window of the board, fetched O(window):
-        whole word columns are sliced on the device, unpacked and trimmed on
-        the host."""
+        """A (y1-y0, x1-x0) uint8 window of the board, fetched O(window): on
+        the packed layouts whole word columns are sliced on the device,
+        unpacked and trimmed on the host."""
         if not (0 <= y0 < y1 <= self.config.height):
             raise ValueError(f"bad row window [{y0}, {y1})")
         if not (0 <= x0 < x1 <= self.config.width):
             raise ValueError(f"bad col window [{x0}, {x1})")
+        if self.layout == "dense":
+            return self.board[y0:y1, x0:x1].cpu().numpy()
         lane = bitpack.LANE_BITS
         w0, w1 = x0 // lane, -(-x1 // lane)
-        words = bitpack.words_to_numpy(self.board[y0:y1, w0:w1])
         off = x0 - w0 * lane
-        return bitpack.unpack_np(words)[:, off : off + (x1 - x0)]
+        if self.layout == "words":
+            cells = bitpack.unpack_np(bitpack.words_to_numpy(self.board[y0:y1, w0:w1]))
+        else:
+            cells = bitpack_gen.unpack_gen_np(
+                bitpack.words_to_numpy(self.board[:, y0:y1, w0:w1])
+            )
+        return cells[:, off : off + (x1 - x0)]
 
     def board_host(self) -> np.ndarray:
         """The full board as host uint8 — O(board); for tests and small
         boards."""
-        return bitpack.unpack_np(bitpack.words_to_numpy(self.board))
+        if self.layout == "dense":
+            return self.board.cpu().numpy()
+        words = bitpack.words_to_numpy(self.board)
+        if self.layout == "words":
+            return bitpack.unpack_np(words)
+        return bitpack_gen.unpack_gen_np(words)
 
     def close(self) -> None:
         self.observer.close()

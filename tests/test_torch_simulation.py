@@ -166,16 +166,17 @@ def test_default_device_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        (dict(kernel="dense"), "not ported"),
         (dict(kernel="matmul"), "not ported"),
-        (dict(rule="brians-brain"), "Generations"),
-        (dict(rule="bugs"), "Larger-than-Life"),
-        (dict(width=48), "width % 32"),
+        (dict(kernel="pallas", rule="R2,B3-5,S2-6,NN"), "box neighborhoods"),
+        (dict(kernel="bitpack", rule="bugs"), "totalistic and wireworld"),
+        (dict(kernel="bitpack", width=48), "width % 32"),
+        (dict(kernel="pallas", rule="brians-brain", width=48), "width % 32"),
+        (dict(exchange_width=4), "exchange_width"),
     ],
 )
 def test_refuses_what_later_slices_bring(kw, match):
     with pytest.raises(ValueError, match=match):
-        tsim.Simulation(SimulationConfig(**kw), device="cpu")
+        tsim.Simulation(load_config(None, kw), device="cpu")
 
 
 def test_cpu_run_launches_no_kernel():
