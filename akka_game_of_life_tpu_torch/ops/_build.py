@@ -4,7 +4,11 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface and loaded with :mod:`ctypes` (no PyTorch
 headers, so a build takes seconds).  Libraries go into ``build/kernels/`` at
 the root of the checkout, named by a hash of the source and the flags, and are
-built at first use: importing this module needs no ``nvcc``.
+built at first use: importing this module needs no ``nvcc``.  ``load`` is safe
+across threads (the cluster's in-process workers reach it together at their
+first chunk): one lock serializes the build, and the temporary file is named
+per process and thread, so concurrent builds from other processes do not
+collide either.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple, Tuple
@@ -25,6 +30,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+_LOCK = threading.Lock()
 
 
 class Built(NamedTuple):
@@ -53,17 +59,18 @@ def load(name: str, defines: Tuple[str, ...] = ()) -> Built:
     key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()
     lib = BUILD_DIR / f"{name}-{key[:16]}.so"
     seconds, log = 0.0, ""
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *flags, "-o", str(tmp), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        seconds, log = time.perf_counter() - t0, proc.stdout
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{log}")
-        os.replace(tmp, lib)
-    return Built(ctypes.CDLL(str(lib)), seconds, log)
+    with _LOCK:
+        if not lib.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [_nvcc(), *flags, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            seconds, log = time.perf_counter() - t0, proc.stdout
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed for {src.name}:\n{log}")
+            os.replace(tmp, lib)
+        return Built(ctypes.CDLL(str(lib)), seconds, log)

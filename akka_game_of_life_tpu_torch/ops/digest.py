@@ -198,6 +198,17 @@ def digest_planes_np(planes: np.ndarray, width: int) -> np.ndarray:
     return lanes
 
 
+def digest_payload_np(
+    payload: dict, origin: Tuple[int, int], width: int
+) -> np.ndarray:
+    """Digest lanes of a wire/checkpoint tile payload (``wire.pack_tile``
+    form) at its global ``origin`` of a ``width``-wide board — one tile at
+    a time, never the assembled board."""
+    from akka_game_of_life_tpu_torch.runtime.wire import unpack_tile
+
+    return digest_dense_np(unpack_tile(payload), origin, width)
+
+
 # -- merge / presentation ------------------------------------------------------
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+import threading
 from typing import Callable, List, Optional, Tuple
 
 import torch
@@ -34,6 +35,9 @@ MAX_STEPS_PER_SWEEP = 31
 # with the kernel's 256-row tiles.  k = 10 divides the headline's 60-step
 # chunks.
 DEFAULT_STEPS_PER_SWEEP = 10
+# The cluster's in-process workers launch from several threads; the launch
+# count must not lose an increment between them.
+_COUNT_LOCK = threading.Lock()
 
 
 def rule_masks(rule: Rule) -> Tuple[int, int]:
@@ -121,8 +125,13 @@ def _launch(
         )
     if rc != 0:
         raise RuntimeError(f"packed_sweep_launch failed: CUDA error {rc}")
-    packed_sweep.launches += 1
+    _count_launch()
     return out
+
+
+def _count_launch() -> None:
+    with _COUNT_LOCK:
+        packed_sweep.launches += 1
 
 
 def packed_sweep(words: torch.Tensor, rule, steps_per_sweep: int) -> torch.Tensor:

@@ -6,23 +6,82 @@ same file names (``ckpt_<epoch:012d>.npz``), keys (``epoch``, ``shape``,
 ``packed``, ``board``, ``meta``) and layouts (1 = np.packbits of a binary
 board, 0 = dense uint8, 2 = (H, W/32) uint32 LSB-first words, 3 = (m, H,
 W/32) Generations/WireWorld bit planes), so each package resumes the other's
-checkpoints.  Writes are atomic (tmp + fsync + rename);
-the newest ``keep`` epochs are kept.
+checkpoints.  The cluster frontend streams per-tile epochs instead:
+``ckpt_<epoch:012d>.d/tile_<r>_<c>.npz`` wire payloads plus a
+``COMPLETE.json`` marker that makes the epoch durable, the same layout as the
+JAX package's, so a cluster checkpoint directory written by either package
+resumes in the other's frontend.  Writes are atomic (tmp + fsync + rename);
+the newest ``keep`` epochs are kept.  Only npz exists here: ``make_store``
+refuses ``orbax`` by name.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import re
+import shutil
 import tempfile
+import time
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
 _CKPT_RE = re.compile(r"^ckpt_(\d+)\.npz$")
+_TILE_DIR_RE = re.compile(r"^ckpt_(\d+)\.d$")
+_COMPLETE = "COMPLETE.json"
+
+
+def make_store(
+    directory: str, fmt: str = "npz", keep: int = 3, registry=None, tracer=None
+) -> "CheckpointStore":
+    """The npz store of ``directory``; any other format raises by name."""
+    if fmt != "npz":
+        raise ValueError(
+            f"checkpoint format {fmt!r} is not supported by the PyTorch "
+            f"port; use npz"
+        )
+    return CheckpointStore(directory, keep=keep, registry=registry, tracer=tracer)
+
+
+class _StoreMetrics:
+    """Save/restore counters, latency histograms and spans (the JAX
+    package's instruments, by name)."""
+
+    def __init__(self, registry=None, tracer=None) -> None:
+        if registry is None:
+            from akka_game_of_life_tpu_torch.obs import get_registry
+
+            registry = get_registry()
+        self.tracer = tracer
+        self.saves = registry.counter("gol_checkpoint_saves_total")
+        self.restores = registry.counter("gol_checkpoint_restores_total")
+        seconds = registry.histogram("gol_checkpoint_seconds", labelnames=("op",))
+        self.save_seconds = seconds.labels(op="save")
+        self.restore_seconds = seconds.labels(op="restore")
+
+    @contextlib.contextmanager
+    def _timed(self, name: str, seconds, counter):
+        if self.tracer is None:
+            from akka_game_of_life_tpu_torch.obs.tracing import get_tracer
+
+            self.tracer = get_tracer()
+        with self.tracer.span(name):
+            t0 = time.perf_counter()
+            yield
+            seconds.observe(time.perf_counter() - t0)
+            counter.inc()
+
+    def timed_save(self):
+        return self._timed("checkpoint.save", self.save_seconds, self.saves)
+
+    def timed_restore(self):
+        return self._timed(
+            "checkpoint.restore", self.restore_seconds, self.restores
+        )
 
 
 @dataclasses.dataclass
@@ -39,17 +98,20 @@ class Checkpoint:
 class CheckpointStore:
     """A directory of epoch-stamped checkpoints with atomic writes."""
 
-    def __init__(self, directory: str, keep: int = 3) -> None:
+    def __init__(
+        self, directory: str, keep: int = 3, registry=None, tracer=None
+    ) -> None:
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self.metrics = _StoreMetrics(registry, tracer)
 
-    def _write_epoch(self, epoch: int, payload: dict) -> Path:
-        target = self.dir / f"ckpt_{epoch:012d}.npz"
-        fd, tmp = tempfile.mkstemp(dir=self.dir, suffix=".tmp")
+    @staticmethod
+    def _atomic_write(directory: Path, target: Path, write, mode: str = "wb") -> None:
+        fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
         try:
-            with os.fdopen(fd, "wb") as f:
-                np.savez_compressed(f, **payload)
+            with os.fdopen(fd, mode) as f:
+                write(f)
                 f.flush()
                 os.fsync(f.fileno())
             os.replace(tmp, target)
@@ -57,6 +119,13 @@ class CheckpointStore:
             if os.path.exists(tmp):
                 os.unlink(tmp)
             raise
+
+    def _write_epoch(self, epoch: int, payload: dict) -> Path:
+        target = self.dir / f"ckpt_{epoch:012d}.npz"
+        with self.metrics.timed_save():
+            self._atomic_write(
+                self.dir, target, lambda f: np.savez_compressed(f, **payload)
+            )
         self._gc()
         return target
 
@@ -117,18 +186,132 @@ class CheckpointStore:
             },
         )
 
+    # -- per-tile streaming saves (the cluster frontend's) -------------------
+
+    def _tile_dir(self, epoch: int) -> Path:
+        return self.dir / f"ckpt_{epoch:012d}.d"
+
+    def _tile_path(self, epoch: int, tile) -> Path:
+        return self._tile_dir(epoch) / f"tile_{int(tile[0])}_{int(tile[1])}.npz"
+
+    def save_tile(self, epoch: int, tile, arr) -> Path:
+        """Stream one tile of ``epoch`` to disk atomically: ``arr`` is a
+        uint8 tile or its wire payload (``wire.pack_tile``), stored as is.
+        The epoch becomes durable only at :meth:`finalize_epoch`."""
+        from akka_game_of_life_tpu_torch.runtime.wire import pack_tile
+
+        d = self._tile_dir(epoch)
+        d.mkdir(parents=True, exist_ok=True)
+        payload = arr if isinstance(arr, dict) else pack_tile(
+            np.asarray(arr, dtype=np.uint8)
+        )
+        target = self._tile_path(epoch, tile)
+        self._atomic_write(
+            d,
+            target,
+            lambda f: np.savez_compressed(
+                f,
+                enc=np.frombuffer(payload["enc"].encode(), dtype=np.uint8),
+                shape=np.asarray(payload["shape"], dtype=np.int64),
+                data=payload["data"],
+            ),
+        )
+        return target
+
+    def finalize_epoch(
+        self, epoch: int, rule: str, grid, board_shape, meta: Optional[dict] = None
+    ) -> None:
+        """Mark a per-tile epoch durable once every tile has been saved."""
+        doc = json.dumps(
+            {
+                "epoch": epoch,
+                "rule": rule,
+                "grid": list(grid),
+                "shape": list(board_shape),
+                **(meta or {}),
+            }
+        )
+        d = self._tile_dir(epoch)
+        with self.metrics.timed_save():
+            self._atomic_write(d, d / _COMPLETE, lambda f: f.write(doc), mode="w")
+        self._gc()
+
+    def tile_meta(self, epoch: int) -> dict:
+        return json.loads((self._tile_dir(epoch) / _COMPLETE).read_text())
+
+    def load_tile_payload(self, epoch: int, tile) -> dict:
+        """The tile's wire payload exactly as stored."""
+        with np.load(self._tile_path(epoch, tile)) as z:
+            return {
+                "enc": bytes(z["enc"].tobytes()).decode(),
+                "shape": [int(v) for v in z["shape"]],
+                "data": z["data"].copy(),
+            }
+
+    def load_tile(self, epoch: int, tile) -> np.ndarray:
+        from akka_game_of_life_tpu_torch.runtime.wire import unpack_tile
+
+        return unpack_tile(self.load_tile_payload(epoch, tile))
+
+    def tile_digest(self, epoch: int) -> int:
+        """A per-tile epoch's merged 64-bit digest, one tile in memory at a
+        time; a tile whose shape disagrees with the layout raises."""
+        from akka_game_of_life_tpu_torch.ops import digest as odigest
+
+        meta = self.tile_meta(epoch)
+        rows, cols = meta["grid"]
+        h, w = (int(v) for v in meta["shape"])
+        th, tw = h // rows, w // cols
+
+        def tile_lanes(i: int, j: int) -> np.ndarray:
+            tile = self.load_tile(epoch, (i, j))
+            if tile.shape != (th, tw):
+                raise ValueError(
+                    f"tile ({i}, {j}) of epoch {epoch} has shape "
+                    f"{tile.shape}, layout expects {(th, tw)}"
+                )
+            return odigest.digest_dense_np(tile, (i * th, j * tw), w)
+
+        return odigest.value(
+            odigest.merge_lanes(
+                tile_lanes(i, j) for i in range(rows) for j in range(cols)
+            )
+        )
+
     def _epochs(self):
+        """(epoch, path) of every durable checkpoint: full-board files and
+        COMPLETE-marked tile directories."""
         out = []
         for p in self.dir.iterdir():
             m = _CKPT_RE.match(p.name)
             if m:
+                out.append((int(m.group(1)), p))
+                continue
+            m = _TILE_DIR_RE.match(p.name)
+            if m and p.is_dir() and (p / _COMPLETE).exists():
                 out.append((int(m.group(1)), p))
         return sorted(out)
 
     def _gc(self) -> None:
         epochs = self._epochs()
         for _, p in epochs[: max(0, len(epochs) - self.keep)]:
-            p.unlink(missing_ok=True)
+            if p.is_dir():
+                shutil.rmtree(p, ignore_errors=True)
+            else:
+                p.unlink(missing_ok=True)
+        # Unfinalized tile directories older than the newest durable epoch
+        # are failed partial saves.
+        if epochs:
+            newest = epochs[-1][0]
+            for p in self.dir.iterdir():
+                m = _TILE_DIR_RE.match(p.name)
+                if (
+                    m
+                    and p.is_dir()
+                    and not (p / _COMPLETE).exists()
+                    and int(m.group(1)) < newest
+                ):
+                    shutil.rmtree(p, ignore_errors=True)
 
     def latest_epoch(self) -> Optional[int]:
         epochs = self._epochs()
@@ -139,7 +322,11 @@ class CheckpointStore:
     ) -> Checkpoint:
         """Load the newest (or the given) epoch.  With ``keep_packed=True`` a
         packed checkpoint (layout 2 or 3) comes back as words or planes
-        (``board=None``)."""
+        (``board=None``); a per-tile epoch is stitched into a dense board."""
+        with self.metrics.timed_restore():
+            return self._load(epoch, keep_packed=keep_packed)
+
+    def _load(self, epoch: Optional[int], *, keep_packed: bool) -> Checkpoint:
         epochs = self._epochs()
         if not epochs:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -152,6 +339,20 @@ class CheckpointStore:
                     f"no checkpoint for epoch {epoch} in {self.dir}"
                 )
             path = matches[0]
+        if path.is_dir():
+            meta = self.tile_meta(epoch)
+            rows, cols = meta.pop("grid")
+            shape = tuple(int(v) for v in meta.pop("shape"))
+            meta.pop("epoch", None)
+            th, tw = shape[0] // rows, shape[1] // cols
+            board = np.empty(shape, dtype=np.uint8)
+            for i in range(rows):
+                for j in range(cols):
+                    board[i * th : (i + 1) * th, j * tw : (j + 1) * tw] = (
+                        self.load_tile(epoch, (i, j))
+                    )
+            rule = meta.pop("rule")
+            return Checkpoint(epoch=int(epoch), board=board, rule=rule, meta=meta)
         with np.load(path) as z:
             shape = tuple(int(v) for v in z["shape"])
             meta = json.loads(bytes(z["meta"].tobytes()).decode())
@@ -179,3 +380,6 @@ class CheckpointStore:
         return Checkpoint(
             epoch=int(epoch), board=board.astype(np.uint8), rule=rule, meta=meta
         )
+
+    def close(self) -> None:
+        """Saves are synchronous; nothing is held open."""

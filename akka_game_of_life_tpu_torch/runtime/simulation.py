@@ -61,7 +61,10 @@ from akka_game_of_life_tpu_torch.ops import (
 )
 from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
 from akka_game_of_life_tpu_torch.runtime.checkpoint import CheckpointStore
-from akka_game_of_life_tpu_torch.runtime.config import SimulationConfig
+from akka_game_of_life_tpu_torch.runtime.config import (
+    SimulationConfig,
+    cluster_keys_set,
+)
 from akka_game_of_life_tpu_torch.runtime.render import BoardObserver, sample_strides
 from akka_game_of_life_tpu_torch.utils.patterns import (
     place,
@@ -156,6 +159,12 @@ class Simulation:
         observer: Optional[BoardObserver] = None,
         device=None,
     ) -> None:
+        cluster_only = cluster_keys_set(config)
+        if cluster_only:
+            raise ValueError(
+                f"config keys {cluster_only} belong to the cluster roles "
+                f"(frontend/backend); the standalone run does not honour them"
+            )
         self.config = config
         self.device = resolve_device(device)
         self.rule = resolve_rule(config.rule)

@@ -5,7 +5,7 @@
 
 Run from the root of a checkout.  It builds the CUDA kernels from ``csrc/``
 (one ``nvcc`` per source, all at once), holds each kernel against its plain
-PyTorch version on the card, bit for bit, and drives the port's three main
+PyTorch version on the card, bit for bit, and drives the port's four main
 paths through its CLI:
 
 - the headline (``examples/headline-65536.toml``: a 65536² Conway torus
@@ -17,9 +17,16 @@ paths through its CLI:
   CPU reference;
 - Larger-than-Life (``bugs`` on a random 16384² torus, 60 epochs) through
   the LtL step, with digests equal to the plain dense run on the card and a
-  resume.
+  resume;
+- the cluster (a random 16384² Conway torus, 120 epochs in 10-epoch
+  exchanges): the in-process harness with two ``torch`` workers on the card,
+  each binary chunk through the packed sweep, then the ``frontend`` and two
+  ``backend`` processes with one backend killed after the epoch-30
+  checkpoint; both end on the digests of the plain packed ``run`` on the
+  card.
 
-Then it times each kernel at its main-path shape.  Each phase prints one
+Then it times each kernel at its main-path shape, and the worker's chunk
+engine step by step at the cluster's slab.  Each phase prints one
 JSON line; the ``kernels`` line and the card's name and power limit come
 before the last line, which is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero; without CUDA, or without the
@@ -33,10 +40,15 @@ import concurrent.futures
 import contextlib
 import io
 import json
+import os
+import queue
 import re
 import shutil
+import signal
+import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -45,6 +57,8 @@ HEADLINE = ROOT / "examples" / "headline-65536.toml"
 WIREWORLD = ROOT / "examples" / "wireworld-16384.toml"
 OUT = ROOT / "chiprun_out"
 KERNELS = ("packed_sweep", "gen_sweep", "ltl_sweep")
+# The cluster worker's chunk engine steps through the packed sweep's source.
+KERNEL_SOURCE = {"worker_chunk": "packed_sweep"}
 
 RULES = ["conway", "highlife", "day-and-night", "seeds", "life-without-death"]
 SMALL_SHAPES = [(1, 1), (3, 1), (37, 3), (64, 2), (1000, 33)]
@@ -68,6 +82,29 @@ LTL_RUN = [
     "--obs-digest", "--checkpoint-every", "30", "--device", "cuda",
 ]
 LTL_RESUME_FROM = 30
+
+# The cluster: the JAX package's own cluster scale (16384², two workers, one
+# 8192 x 16384 tile each), 10-epoch exchanges, digests every 30 epochs.
+CLUSTER_TOML = """\
+height = 16384
+width = 16384
+rule = "conway"
+seed = 0
+density = 0.5
+max_epochs = 120
+exchange_width = 10
+metrics_every = 30
+checkpoint_every = 30
+obs_digest = true
+failure_timeout_s = 10
+"""
+CLUSTER_EPOCHS = [30, 60, 90, 120]
+CLUSTER_WORKERS = 2
+CLUSTER_TICK = "200ms"  # the node-loss run lasts >= 120 x 0.2 s
+CLUSTER_KILL_AFTER = 30  # epoch whose checkpoint must be final before the kill
+CLUSTER_DEVICE = "cuda"
+WAIT_S = 240  # bound on every wait of the multi-process run
+_DIGEST_LINE = re.compile(r"^epoch (\d+): digest=([0-9a-f]{16})$", re.M)
 
 _METRICS = re.compile(r"^epoch (\d+): pop=(\d+) .* digest=([0-9a-f]{16})$", re.M)
 _WINDOW = re.compile(
@@ -483,6 +520,298 @@ def ltl_path(tmp: Path, card):
     return auto_counts["ltl_sweep"]
 
 
+def cluster_reference(toml: Path):
+    """The plain packed ``run`` on the card (``--kernel bitpack``): the
+    cluster's digests at every cadence epoch, with no hand kernel launched."""
+    from akka_game_of_life_tpu_torch.runtime.config import load_config
+
+    config = load_config(str(toml))
+    zero_counts()
+    text, run_s = run_cli(
+        ["run", "--rule", config.rule, "--height", str(config.height),
+         "--width", str(config.width), "--seed", str(config.seed),
+         "--density", str(config.density), "--max-epochs", str(config.max_epochs),
+         "--steps-per-call", str(config.exchange_width),
+         "--metrics-every", str(config.metrics_every), "--obs-digest",
+         "--kernel", "bitpack", "--device", CLUSTER_DEVICE],
+        "cluster_reference.log",
+    )
+    check(sum(read_counts().values()) == 0, f"reference launched kernels: {read_counts()}")
+    metrics, _ = parse_run(text)
+    check(sorted(metrics) == CLUSTER_EPOCHS, f"reference epochs {sorted(metrics)}")
+    return {e: metrics[e][1] for e in CLUSTER_EPOCHS}, run_s
+
+
+def cluster_in_process(toml: Path, want, tmp: Path, card):
+    """``ClusterHarness`` with two torch workers on the card, free-running:
+    the frontend's merged digests equal the reference's, and the packed
+    sweep launched exactly tiles x chunks x sweeps per chunk times."""
+    from akka_game_of_life_tpu_torch.ops.packed_sweep import plan_sweeps
+    from akka_game_of_life_tpu_torch.runtime.config import load_config
+    from akka_game_of_life_tpu_torch.runtime.harness import ClusterHarness
+    from akka_game_of_life_tpu_torch.runtime.render import BoardObserver
+
+    config = load_config(str(toml), {"checkpoint_dir": str(tmp / "cluster-inproc")})
+    out = io.StringIO()
+    observer = BoardObserver(metrics_every=config.metrics_every, out=out)
+    chunks = config.max_epochs // config.exchange_width
+    expected = CLUSTER_WORKERS * chunks * len(plan_sweeps(config.exchange_width))
+    zero_counts()
+    h = ClusterHarness(
+        config, CLUSTER_WORKERS, observer=observer, engine="torch", device=CLUSTER_DEVICE
+    )
+    try:
+        check(h.frontend.wait_for_backends(timeout=60), "in-process workers did not join")
+        t0 = time.perf_counter()
+        h.frontend.start_simulation()
+        check(h.frontend.done.wait(WAIT_S), "in-process cluster did not finish")
+        wall = time.perf_counter() - t0
+        check(h.frontend.error is None, f"in-process cluster: {h.frontend.error}")
+        digests = {e: f"{v:016x}" for e, v in h.frontend.epoch_digests.items()}
+        tiles = len(h.frontend.layout.tile_ids)
+    finally:
+        h.shutdown()
+    counts = read_counts()
+    (OUT / "cluster_inproc.log").write_text(out.getvalue())
+    check(tiles == CLUSTER_WORKERS, f"{tiles} tiles")
+    for e in CLUSTER_EPOCHS:
+        check(digests.get(e) == want[e], f"in-process epoch {e}: {digests.get(e)} != {want[e]}")
+    check(counts["packed_sweep"] == expected,
+          f"in-process: {counts['packed_sweep']} packed_sweep launches, expected {expected}")
+    check(sum(counts.values()) == counts["packed_sweep"], f"other kernels launched: {counts}")
+    cells = config.height * config.width * config.max_epochs
+    emit(
+        "main_path", config=f"ClusterHarness(2 torch workers, {CLUSTER_DEVICE}), " + toml.name,
+        kernel="packed_sweep", epochs=config.max_epochs, launches=counts,
+        expected_launches=expected, digests={e: digests[e] for e in CLUSTER_EPOCHS},
+        run_s=wall, run_cell_updates_per_s=cells / wall, card=card["name_power"],
+    )
+    return counts["packed_sweep"]
+
+
+def _port_cli(*args) -> list:
+    return [sys.executable, "-m", "akka_game_of_life_tpu_torch", *args]
+
+
+def _reader(proc, log_path: Path, lines: "queue.Queue[str]"):
+    """Copy a child's output to its log file, line by line, into a queue."""
+    with open(log_path, "w") as log:
+        for line in proc.stdout:
+            log.write(line)
+            log.flush()
+            lines.put(line)
+
+
+def _await_line(lines, pattern, deadline: float, what: str):
+    while True:
+        left = deadline - time.monotonic()
+        check(left > 0, f"timed out waiting for {what}")
+        try:
+            line = lines.get(timeout=min(left, 1.0))
+        except queue.Empty:
+            continue
+        m = re.search(pattern, line)
+        if m:
+            return m
+
+
+def cluster_node_loss(toml: Path, want, tmp: Path, card):
+    """The ``frontend`` and two ``backend --device cuda`` processes, paced at
+    one epoch per tick: once the epoch-30 checkpoint is final one backend is
+    killed (SIGKILL); the frontend must redeploy its tile, exit 0, and print
+    the reference's digests, and the checkpoint directory's epoch-120 digest
+    must equal them too."""
+    from akka_game_of_life_tpu_torch.runtime.checkpoint import CheckpointStore
+
+    ckpt = tmp / "cluster-ckpt"
+    metrics_file = tmp / "frontend.prom"
+    env = {
+        **os.environ,
+        "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""),
+        # A child still running at the end gets SIGABRT first: its thread
+        # stacks land in its log under chiprun_out/.
+        "PYTHONFAULTHANDLER": "1",
+    }
+    procs = []
+    try:
+        fe = subprocess.Popen(
+            _port_cli("frontend", "--config", str(toml), "--port", "0",
+                      "--min-backends", str(CLUSTER_WORKERS), "--wait-for-backends", f"{WAIT_S}s",
+                      "--tick", CLUSTER_TICK, "--checkpoint-dir", str(ckpt),
+                      "--metrics-file", str(metrics_file), "--flight-dir", str(tmp / "flight")),
+            cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        procs.append(fe)
+        fe_lines: "queue.Queue[str]" = queue.Queue()
+        threading.Thread(target=_reader, args=(fe, OUT / "cluster_frontend.log", fe_lines),
+                         daemon=True).start()
+        t0 = time.perf_counter()
+        port = int(_await_line(fe_lines, r"frontend listening on \S+:(\d+)",
+                               time.monotonic() + WAIT_S, "the frontend's port").group(1))
+        backends = []
+        for i in range(CLUSTER_WORKERS):
+            be = subprocess.Popen(
+                _port_cli("backend", "--port", str(port), "--name", f"gpu{i}",
+                          "--device", CLUSTER_DEVICE, "--flight-dir", str(tmp / "flight")),
+                cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            procs.append(be)
+            backends.append(be)
+            threading.Thread(target=_reader, args=(be, OUT / f"cluster_backend{i}.log", queue.Queue()),
+                             daemon=True).start()
+        marker = ckpt / f"ckpt_{CLUSTER_KILL_AFTER:012d}.d" / "COMPLETE.json"
+        deadline = time.monotonic() + WAIT_S
+        while not marker.exists():
+            check(time.monotonic() < deadline, "no epoch-30 checkpoint before the kill")
+            check(fe.poll() is None, f"frontend exited early ({fe.returncode})")
+            time.sleep(0.1)
+        victim = backends[0]
+        victim.send_signal(signal.SIGKILL)
+        killed_at = time.perf_counter() - t0
+        rc = fe.wait(timeout=WAIT_S)
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"frontend exited {rc}")
+        for be in backends[1:]:
+            check(be.wait(timeout=60) == 0, f"surviving backend exited {be.returncode}")
+    finally:
+        stuck = [p for p in procs if p.poll() is None]
+        for p in stuck:
+            p.send_signal(signal.SIGABRT)
+        for p in stuck:
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                p.wait(timeout=5)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                p.wait(timeout=30)
+    text = (OUT / "cluster_frontend.log").read_text()
+    digests = {int(e): d for e, d in _DIGEST_LINE.findall(text)}
+    for e in CLUSTER_EPOCHS:
+        check(digests.get(e) == want[e], f"node-loss epoch {e}: {digests.get(e)} != {want[e]}")
+    redeploys = [
+        float(line.split()[-1]) for line in metrics_file.read_text().splitlines()
+        if line.startswith("gol_redeploys_total")
+    ]
+    check(redeploys and redeploys[0] >= 1, f"no redeploy recorded: {redeploys}")
+    store = CheckpointStore(str(ckpt))
+    check(store.latest_epoch() == CLUSTER_EPOCHS[-1], f"latest checkpoint {store.latest_epoch()}")
+    stored = store.tile_meta(CLUSTER_EPOCHS[-1]).get("digest")
+    check(stored == want[CLUSTER_EPOCHS[-1]], f"checkpoint digest {stored} != {want[CLUSTER_EPOCHS[-1]]}")
+    emit(
+        "main_path", config=f"frontend --tick {CLUSTER_TICK} + {CLUSTER_WORKERS} x backend "
+        f"--device {CLUSTER_DEVICE}, "
+        + toml.name, killed="gpu0", killed_at_s=killed_at, redeploys=redeploys[0],
+        digests={e: digests[e] for e in CLUSTER_EPOCHS}, checkpoint_digest=stored,
+        run_s=wall, card=card["name_power"],
+    )
+
+
+def chunk_timing(card, rng):
+    """The worker's chunk engine at the cluster's own slab (an 8192 x 16384
+    tile with a 10-wide halo, 10 steps): held against its plain version on
+    the card and timed step by step with CUDA events (host pad on the host
+    clock).  Returns (max_abs_err, ms per sweep, plain ms, bound, chunk ms)."""
+    import numpy as np
+    import torch
+
+    from akka_game_of_life_tpu_torch import bench
+    from akka_game_of_life_tpu_torch.ops import bitpack, packed_sweep
+    from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
+    from akka_game_of_life_tpu_torch.runtime.backend import _np_chunk, _torch_engine
+    from akka_game_of_life_tpu_torch.runtime.boundary import Halo
+
+    conway = resolve_rule("conway")
+    k = 10
+    th, tw = 16384 // CLUSTER_WORKERS, 16384
+    tile = (rng.random((th, tw), dtype=np.float32) < 0.5).astype(np.uint8)
+    halo = Halo(
+        top=np.ascontiguousarray(np.concatenate([tile[-k:, -k:], tile[-k:], tile[-k:, :k]], 1)),
+        bottom=np.ascontiguousarray(np.concatenate([tile[:k, -k:], tile[:k], tile[:k, :k]], 1)),
+        left=np.ascontiguousarray(tile[:, -k:]), right=np.ascontiguousarray(tile[:, :k]),
+    )
+    engine = _torch_engine(conway, device="cuda")
+    plain_engine = _torch_engine(conway, pallas="off", device="cuda")
+    padded = halo.pad(tile)
+    got = engine(padded, k, k)
+    plain = plain_engine(padded, k, k)
+    err = int(np.abs(got.astype(np.int16) - plain.astype(np.int16)).max())
+    check(err == 0, "worker chunk != its plain version at the cluster slab")
+    # The JAX engine's awkward slabs against the host oracle.
+    for h, w, steps, hw in [(40, 40, 4, 4), (120, 56, 8, 8), (250, 70, 2, 5)]:
+        small = (rng.random((h + 2 * hw, w + 2 * hw)) < 0.5).astype(np.uint8)
+        check(np.array_equal(engine(small, steps, hw), _np_chunk(small, steps, hw, conway)),
+              f"worker chunk != _np_chunk at {h}x{w}")
+    # One chunk, step by step, as the engine runs it.
+    reps = 5
+    split = {p: 0.0 for p in ("host_pad", "h2d", "pack", "sweep", "unpack", "slice", "d2h")}
+    col_pad = (-padded.shape[1]) % 32
+    for rep in range(reps + 1):
+        t0 = time.perf_counter()
+        padded = halo.pad(tile)
+        host_pad = time.perf_counter() - t0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        x = torch.from_numpy(padded).to("cuda")
+        ev[1].record()
+        words = bitpack.pack(torch.nn.functional.pad(x, (0, col_pad)))
+        ev[2].record()
+        words = packed_sweep.packed_multi_step_fn(conway, k)(words)
+        ev[3].record()
+        out = bitpack.unpack(words)
+        ev[4].record()
+        out = out[:, :-col_pad][k:-k, k:-k].contiguous()
+        ev[5].record()
+        stepped = out.cpu().numpy()
+        ev[6].record()
+        torch.cuda.synchronize()
+        if rep == 0:
+            continue  # warm-up
+        split["host_pad"] += host_pad * 1e3 / reps
+        for name, a, b in zip(list(split)[1:], ev[:-1], ev[1:]):
+            split[name] += a.elapsed_time(b) / reps
+    check(np.array_equal(stepped, got), "step-by-step chunk != engine chunk")
+    chunk_ms = 0.0
+    for rep in range(reps + 1):
+        t0 = time.perf_counter()
+        engine(halo.pad(tile), k, k)
+        if rep:
+            chunk_ms += (time.perf_counter() - t0) * 1e3 / reps
+    # The worker's other host work on the same tile: the ring it publishes
+    # every chunk, and at cadence epochs the digest lanes, the population and
+    # the packed checkpoint payload.
+    from akka_game_of_life_tpu_torch.ops.digest import digest_dense_np
+    from akka_game_of_life_tpu_torch.runtime.tiles import Ring
+    from akka_game_of_life_tpu_torch.runtime.wire import encode_ring, pack_tile
+
+    host = {}
+    for name, fn in (
+        ("ring", lambda: encode_ring(Ring.of(got, k), True)),
+        ("digest", lambda: digest_dense_np(got, (th, 0), tw)),
+        ("population", lambda: int((got == 1).sum())),
+        ("pack_tile", lambda: pack_tile(got)),
+    ):
+        t0 = time.perf_counter()
+        fn()
+        host[name] = (time.perf_counter() - t0) * 1e3
+    x = bitpack.pack(torch.nn.functional.pad(torch.from_numpy(padded).to("cuda"), (0, col_pad)))
+    h, nw = x.shape
+    ms = bench.time_ms(lambda: packed_sweep._launch(x, conway, k), reps=20)
+    plain_ms = bench.time_ms(lambda: packed_sweep.packed_sweep_reference(x, conway, k), reps=3, warmup=1)
+    bound = bench.sweep_bound(h, nw, k, conway, card["int32_ops_per_s"])
+    emit(
+        "timing", kernel="worker_chunk", slab=list(padded.shape), words=[h, nw], k=k,
+        rule="conway", max_abs_err=err, chunk_ms=chunk_ms, split_ms=split,
+        worker_host_ms=host,
+        ms_per_sweep=ms, plain_ms=plain_ms, **bound, share_of_bound=bound["bound_ms"] / ms,
+        sweep_share_of_chunk=ms / chunk_ms, library_ms=None,
+        library_note="no single PyTorch call computes this packed step",
+        card=card["name_power"],
+    )
+    return err, ms, plain_ms, bound, chunk_ms
+
+
 def timings(card, words, gen_planes, ltl_board):
     """Each kernel at its main-path shape (and the plane sweep also at
     Brian's Brain's 65536²), on the inputs it was checked on, with its bound
@@ -582,22 +911,37 @@ def main() -> int:
             reference_side=WIREWORLD_REFERENCE_SIDE, conserved=True,
         )
         launches["ltl_sweep"] = ltl_path(tmp, card)
+        torch.cuda.empty_cache()
+        toml = tmp / "cluster-16384.toml"
+        toml.write_text(CLUSTER_TOML)
+        want, ref_s = cluster_reference(toml)
+        emit("cluster_reference", digests=want, run_s=ref_s, card=card["name_power"])
+        torch.cuda.empty_cache()
+        launches["worker_chunk"] = cluster_in_process(toml, want, tmp, card)
+        torch.cuda.empty_cache()
+        cluster_node_loss(toml, want, tmp, card)
     torch.cuda.empty_cache()
 
     # -- 4. times on the card at the main paths' shapes ------------------------
     times = timings(card, words, gen_planes, ltl_board)
+    del words, gen_planes, ltl_board
+    torch.cuda.empty_cache()
+    err, ms, plain_ms, bound, chunk_ms = chunk_timing(card, rng)
+    errors.max["worker_chunk"] = err
+    times["worker_chunk"] = (ms, plain_ms, bound)
     emit("done", seconds=time.perf_counter() - t_start, card=card["name_power"])
 
     sources = {
         "packed_sweep": "akka_game_of_life_tpu/ops/pallas_stencil.py:236",
         "gen_sweep": "akka_game_of_life_tpu/ops/pallas_gen.py:50",
         "ltl_sweep": "akka_game_of_life_tpu/ops/pallas_ltl.py:66",
+        "worker_chunk": "akka_game_of_life_tpu/runtime/backend.py:128",
     }
-    print(json.dumps({"kernels": [
+    entries = [
         {
             "name": name,
             "route": "cuda",
-            "source": f"akka_game_of_life_tpu_torch/csrc/{name}.cu",
+            "source": f"akka_game_of_life_tpu_torch/csrc/{KERNEL_SOURCE.get(name, name)}.cu",
             "replaces": sources[name],
             "launches": launches[name],
             "max_abs_err": errors.max[name],
@@ -607,8 +951,10 @@ def main() -> int:
             "bound_by": times[name][2]["bound_by"],
             "library_ms": None,
         }
-        for name in KERNELS
-    ]}), flush=True)
+        for name in (*KERNELS, "worker_chunk")
+    ]
+    entries[-1]["chunk_ms"] = chunk_ms
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card["name_power"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -157,3 +157,54 @@ def test_new_launchers_reject_bad_tensors():
         ltl_sweep._launch(board.to(torch.int32), bugs)
     with pytest.raises(ValueError, match="contiguous"):
         ltl_sweep._launch(board[:, ::2], bugs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "h,w,steps,halo",
+    [(40, 40, 4, 4), (120, 56, 8, 8), (250, 70, 2, 5), (64, 64, 31, 31), (40, 40, 35, 36)],
+)
+@pytest.mark.parametrize("rule", ["conway", "highlife"])
+def test_worker_chunk_matches_np_chunk(h, w, steps, halo, rule):
+    """The cluster's chunk engine on the card, bit-exact against the host
+    oracle at the JAX engine's slabs (and past 31 steps, two launches), with
+    ``len(plan_sweeps(steps))`` launches per chunk."""
+    _need_gpu()
+    from akka_game_of_life_tpu_torch.runtime.backend import _np_chunk, _torch_engine
+
+    rng = np.random.default_rng(h + w + steps)
+    padded = rng.integers(0, 2, size=(h + 2 * halo, w + 2 * halo), dtype=np.uint8)
+    run = _torch_engine(resolve_rule(rule), device="cuda")
+    before = packed_sweep.packed_sweep.launches
+    got = run(padded, steps, halo)
+    assert packed_sweep.packed_sweep.launches - before == len(packed_sweep.plan_sweeps(steps))
+    np.testing.assert_array_equal(got, _np_chunk(padded, steps, halo, resolve_rule(rule)))
+
+
+@pytest.mark.cuda
+def test_worker_chunk_full_slab_matches_plain():
+    """One 8192 x 16384 tile with a 10-wide halo (the 16384² cluster's
+    slab): the kernel path equals the plain packed loop on the card, in one
+    launch; plane rules and single-step chunks launch nothing."""
+    _need_gpu()
+    from akka_game_of_life_tpu_torch.runtime.backend import _np_chunk, _torch_engine
+
+    rng = np.random.default_rng(1)
+    padded = (rng.random((8192 + 20, 16384 + 20), dtype=np.float32) < 0.5).astype(np.uint8)
+    conway = resolve_rule("conway")
+    before = packed_sweep.packed_sweep.launches
+    got = _torch_engine(conway, device="cuda")(padded, 10, 10)
+    assert packed_sweep.packed_sweep.launches == before + 1
+    np.testing.assert_array_equal(
+        got, _torch_engine(conway, pallas="off", device="cuda")(padded, 10, 10)
+    )
+    small = padded[:300, :200]
+    bb = resolve_rule("brians-brain")
+    before = packed_sweep.packed_sweep.launches
+    np.testing.assert_array_equal(
+        _torch_engine(bb, device="cuda")(small, 4, 10), _np_chunk(small, 4, 10, bb)
+    )
+    np.testing.assert_array_equal(
+        _torch_engine(conway, device="cuda")(small, 1, 10), _np_chunk(small, 1, 10, conway)
+    )
+    assert packed_sweep.packed_sweep.launches == before

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: it never imports JAX or the JAX package.
 
-The machine with the GPU has no JAX, so neither the port nor
-``chip_smoke.py`` may import ``jax`` or ``akka_game_of_life_tpu``, even a
-numpy-only module of it.  Importing the port must not build a kernel either.
+The machine with the GPU has no JAX, so neither the port nor its scripts
+(``chip_smoke.py``, ``node_loss_drill.py``) may import ``jax`` or
+``akka_game_of_life_tpu``, even a numpy-only module of it.  Importing the port must not build a kernel either.
 """
 
 import ast
@@ -14,7 +14,9 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "akka_game_of_life_tpu_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "node_loss_drill.py",
+]
 FORBIDDEN = ("jax", "jaxlib", "akka_game_of_life_tpu")
 
 
