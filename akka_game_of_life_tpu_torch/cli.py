@@ -2,8 +2,10 @@
 
 Counterpart of ``akka_game_of_life_tpu/cli.py``'s subcommands of the same
 names, with the flags the port honours.  ``run`` and ``backend`` take
-``--device {cuda,cpu}`` (default ``cuda``; they raise when CUDA is absent
-rather than moving to the CPU):
+``--device`` (default ``cuda``; they raise when CUDA is absent rather than
+moving to the CPU); ``run --device cuda`` uses every visible card, sharding
+the board over them, and ``--mesh ROWSxCOLS`` asks for a mesh of exactly
+that many devices:
 
     python -m akka_game_of_life_tpu_torch run --config examples/headline-65536.toml
     python -m akka_game_of_life_tpu_torch frontend --port 2601 --min-backends 2 \\
@@ -16,6 +18,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import sys
 from typing import Optional, Sequence
 
@@ -99,10 +102,41 @@ def _board_overrides(args: argparse.Namespace) -> dict:
     }
 
 
+def _run_device(value: str) -> str:
+    if value in ("cuda", "cpu") or re.fullmatch(r"cuda:\d+", value):
+        return value
+    raise argparse.ArgumentTypeError(f"expected cuda, cuda:N or cpu, got {value!r}")
+
+
+def _parse_mesh(spec):
+    """"ROWSxCOLS" → (rows, cols); None passes through."""
+    if spec is None:
+        return None
+    try:
+        rows, cols = spec.lower().split("x")
+        return (int(rows), int(cols))
+    except ValueError:
+        raise SystemExit(f"bad --mesh {spec!r}; expected ROWSxCOLS (e.g. 4x2)")
+
+
 def _run_parser(sub) -> argparse.ArgumentParser:
-    p = sub.add_parser("run", help="standalone simulation on one device")
+    p = sub.add_parser("run", help="standalone simulation on one device or a mesh")
     _add_board(p)
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument(
+        "--device", type=_run_device, default="cuda",
+        help="cuda (every visible card; a mesh when there are several), "
+        "cuda:N (one card) or cpu",
+    )
+    p.add_argument(
+        "--mesh",
+        help="ROWSxCOLS device mesh, e.g. 4x2: needs exactly that many of "
+        "--device's devices",
+    )
+    p.add_argument(
+        "--halo-width", type=int,
+        help="steps per halo exchange of the plain sharded steppers "
+        "(the sharded sweeps plan their own)",
+    )
     p.add_argument("--steps-per-call", type=int)
     p.add_argument(
         "--kernel",
@@ -307,6 +341,8 @@ def _run(args: argparse.Namespace) -> int:
         **_board_overrides(args),
         "steps_per_call": args.steps_per_call,
         "kernel": args.kernel,
+        "halo_width": args.halo_width,
+        "mesh_shape": _parse_mesh(args.mesh),
     }
     cfg = load_config(args.config, overrides)
     if cfg.max_epochs is None:
@@ -319,9 +355,10 @@ def _run(args: argparse.Namespace) -> int:
         sim.advance(max(0, cfg.max_epochs - sim.epoch))
         stats = sim.observer.summary()
         if stats is not None:
+            mesh = {} if sim.mesh is None else {"mesh": list(sim.mesh.shape)}
             print(
                 "run summary: "
-                + json.dumps({"kernel": sim.kernel, "epoch": sim.epoch, **stats}),
+                + json.dumps({"kernel": sim.kernel, **mesh, "epoch": sim.epoch, **stats}),
                 file=sim.observer.out,
                 flush=True,
             )

@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kRowBudget = 256;  // output rows per block times planes
@@ -223,17 +225,39 @@ gen_sweep_kernel(const uint32_t *__restrict__ in, uint32_t *__restrict__ out,
   }
 }
 
+// Per-instance, per-device flags of the shared-memory opt-in, under one
+// lock.
+constexpr int kMaxDevices = 64;
+std::mutex opt_in_lock;
+
+template <int M>
+cudaError_t opt_in_on_current_device() {
+  static bool opted_in_on[kMaxDevices];
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(opt_in_lock);
+  if (!opted_in_on[dev]) {
+    const cudaError_t set = cudaFuncSetAttribute(
+        gen_sweep_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes(M, kMaxSteps));
+    if (set != cudaSuccess) return set;
+    opted_in_on[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 template <int M>
 int launch(const void *in, void *out, int H, int NW, int k, unsigned birth,
            unsigned survive1, unsigned wrap_state, int wire, cudaStream_t stream) {
   static_assert(smem_bytes(M, kMaxSteps) <= kSmemLimit,
                 "the deepest sweep does not fit this plane count");
   if (k > kMaxSteps) return (int)cudaErrorInvalidValue;
-  // Shared memory past 48 KB is opted into once per instance, for the
-  // deepest sweep.
-  static const cudaError_t opted_in = cudaFuncSetAttribute(
-      gen_sweep_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(M, kMaxSteps));
+  // Shared memory past 48 KB is opted into for the deepest sweep, once per
+  // instance and device: cudaFuncSetAttribute applies to the current device
+  // only, and a mesh launches on every card it spans.
+  const cudaError_t opted_in = opt_in_on_current_device<M>();
   if (opted_in != cudaSuccess) return (int)opted_in;
   constexpr int T = tile_rows(M);
   const dim3 grid((H + T - 1) / T, (NW + kOutCols - 1) / kOutCols);

@@ -44,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #ifndef TILE_ROWS
 #define TILE_ROWS 256  // output rows per block
 #endif
@@ -169,6 +171,27 @@ __global__ void packed_sweep_kernel(const uint32_t *__restrict__ in,
   }
 }
 
+// Per-device flags of the shared-memory opt-in, under one lock.
+constexpr int kMaxDevices = 64;
+std::mutex opt_in_lock;
+bool opted_in_on[kMaxDevices];
+
+cudaError_t opt_in_on_current_device() {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(opt_in_lock);
+  if (!opted_in_on[dev]) {
+    const cudaError_t set = cudaFuncSetAttribute(
+        packed_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes(kMaxSteps));
+    if (set != cudaSuccess) return set;
+    opted_in_on[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Launch one k-generation sweep on `stream`.  `in` and `out` are distinct
@@ -180,10 +203,10 @@ extern "C" int packed_sweep_launch(const void *in, void *out, int H, int NW,
   if (in == out || H < 1 || NW < 1 || k < 1 || k > kMaxSteps) {
     return (int)cudaErrorInvalidValue;
   }
-  // Shared memory past 48 KB is opted into once, for the deepest sweep.
-  static const cudaError_t opted_in = cudaFuncSetAttribute(
-      packed_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(kMaxSteps));
+  // Shared memory past 48 KB is opted into for the deepest sweep, once per
+  // device: cudaFuncSetAttribute applies to the current device only, and a
+  // mesh launches on every card it spans.
+  const cudaError_t opted_in = opt_in_on_current_device();
   if (opted_in != cudaSuccess) return (int)opted_in;
   const dim3 grid((H + TILE_ROWS - 1) / TILE_ROWS,
                   (NW + kOutCols - 1) / kOutCols);

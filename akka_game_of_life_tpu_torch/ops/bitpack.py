@@ -247,18 +247,18 @@ def population_rows(x: torch.Tensor) -> torch.Tensor:
     return counts.sum(dim=1, dtype=torch.int64)
 
 
+def cells_at(x: torch.Tensor, rows, xs: np.ndarray) -> torch.Tensor:
+    """The cells at cell columns ``xs`` (a host int array) of the rows
+    ``rows`` (any first-axis index) of a packed board, as uint8."""
+    words = x[rows][:, torch.from_numpy(xs // LANE_BITS).to(x.device)]
+    bits = torch.from_numpy((xs % LANE_BITS).astype(np.int32)).to(x.device)
+    return ((words >> bits) & 1).to(torch.uint8)
+
+
 def sample_packed_core(
     sy: int, sx: int, width: int
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Strided probe of a packed board: bit (x·sx) of every sy-th row, as a
     small uint8 view (the render sample for boards too big to ship)."""
     xs = np.arange(0, width, sx)
-    word_idx = torch.from_numpy(xs // LANE_BITS)
-    bit_idx = torch.from_numpy((xs % LANE_BITS).astype(np.int32))
-
-    def _sample(x: torch.Tensor) -> torch.Tensor:
-        rows = x[::sy]
-        words = rows[:, word_idx.to(x.device)]
-        return ((words >> bit_idx.to(x.device)) & 1).to(torch.uint8)
-
-    return _sample
+    return lambda x: cells_at(x, slice(None, None, sy), xs)

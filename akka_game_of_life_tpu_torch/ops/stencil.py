@@ -63,6 +63,18 @@ def apply_rule(state: torch.Tensor, counts: torch.Tensor, rule: Rule) -> torch.T
     return torch.where(state == 0, birth, torch.where(state == 1, live_next, decayed))
 
 
+def neighbor_counts_padded(padded_alive: torch.Tensor) -> torch.Tensor:
+    """Live Moore neighbours of the interior of a 1-halo-padded indicator:
+    (..., H+2, W+2) → (..., H, W) uint8, from eight slices (no wrap)."""
+    h, w = padded_alive.shape[-2] - 2, padded_alive.shape[-1] - 2
+    acc = torch.zeros_like(padded_alive[..., 1:-1, 1:-1])
+    for dy in (0, 1, 2):
+        for dx in (0, 1, 2):
+            if (dy, dx) != (1, 1):
+                acc = acc + padded_alive[..., dy : dy + h, dx : dx + w]
+    return acc
+
+
 def alive_mask(state: torch.Tensor) -> torch.Tensor:
     """0/1 live indicator (state == 1)."""
     return (state == 1).to(STATE_DTYPE)
@@ -76,6 +88,19 @@ def step(state: torch.Tensor, rule) -> torch.Tensor:
 
         return ltl.step_ltl(state, rule)
     return apply_rule(state, neighbor_counts(alive_mask(state)), rule)
+
+
+def step_padded(padded: torch.Tensor, rule) -> torch.Tensor:
+    """One step on a tile padded with a radius-deep halo: (H+2R, W+2R) →
+    (H, W); R is 1 for every kind except ltl.  The sharded dense path's
+    local step."""
+    rule = resolve_rule(rule)
+    if rule.kind == "ltl":
+        from akka_game_of_life_tpu_torch.ops import ltl
+
+        return ltl.step_padded_ltl(padded, rule)
+    counts = neighbor_counts_padded(alive_mask(padded))
+    return apply_rule(padded[..., 1:-1, 1:-1], counts, rule)
 
 
 def multi_step(state: torch.Tensor, rule, n_steps: int) -> torch.Tensor:

@@ -1,16 +1,19 @@
 """Layered configuration: defaults < file < overrides.
 
 Counterpart of ``akka_game_of_life_tpu/runtime/config.py`` restricted to the
-fields the PyTorch port honours: the standalone run's knobs and the cluster's
-(the ``frontend`` and ``backend`` roles, the in-process harness), with the
-JAX package's names, defaults and checks.  ``load_config`` reads the same TOML
-or JSON files (``examples/headline-65536.toml`` loads unchanged) and accepts
-the same duration spellings ("5s", "3000ms").  A key the port does not
-support — a mesh, ``distributed``, ``obs_defer``, ``sparse_kernel``, a
-``serve_*``, federation ``frontend_*`` or ``ff_*`` knob, ``backend`` (the
-per-cell actor engines), or any other — raises a ``ValueError`` that names
-it, never a silent default.  ``checkpoint_format = "orbax"`` is refused by
-name too: the port's store is npz.
+fields the PyTorch port honours: the standalone run's knobs (the device
+mesh of one process included: ``mesh_shape`` and ``halo_width``) and the
+cluster's (the ``frontend`` and ``backend`` roles, the in-process harness),
+with the JAX package's names, defaults and checks.  ``load_config`` reads the
+same TOML or JSON files (``examples/headline-65536.toml`` loads unchanged) and
+accepts the same duration spellings ("5s", "3000ms").  A key the port does
+not support — the multi-process mesh (``distributed``,
+``coordinator_address``, ``num_processes``, ``process_id``),
+``pallas_block_rows``, ``obs_defer``, ``sparse_kernel``, a ``serve_*``,
+federation ``frontend_*`` or ``ff_*`` knob, ``backend`` (the per-cell actor
+engines), or any other — raises a ``ValueError`` that names it, never a
+silent default.  ``checkpoint_format = "orbax"`` is refused by name too: the
+port's store is npz.
 """
 
 from __future__ import annotations
@@ -151,6 +154,13 @@ class SimulationConfig:
     max_epochs: Optional[int] = None
     kernel: str = "auto"
     steps_per_call: int = 1
+    # Steps per halo exchange of the sharded dense and plain packed paths
+    # (the sharded sweeps plan their own exchange depth).
+    halo_width: int = 1
+    # (rows, cols) of the device mesh; None = one device, or every given
+    # device when there are several (packed boards: (n, 1); dense: as
+    # square as possible).
+    mesh_shape: Optional[Tuple[int, int]] = None
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0  # epochs between checkpoints; 0 = disabled
     checkpoint_format: str = "npz"
@@ -227,6 +237,16 @@ class SimulationConfig:
             )
         if self.steps_per_call < 1:
             raise ValueError(f"steps_per_call={self.steps_per_call} must be >= 1")
+        if self.halo_width < 1:
+            raise ValueError(f"halo_width={self.halo_width} must be >= 1")
+        if self.steps_per_call % self.halo_width:
+            raise ValueError("steps_per_call must be a multiple of halo_width")
+        if self.mesh_shape is not None:
+            self.mesh_shape = tuple(self.mesh_shape)
+            if len(self.mesh_shape) != 2 or min(self.mesh_shape) < 1:
+                raise ValueError(
+                    f"mesh_shape={self.mesh_shape} must be (rows, cols) >= 1"
+                )
         for name in ("checkpoint_every", "render_every", "metrics_every"):
             if getattr(self, name) < 0:
                 raise ValueError(f"{name}={getattr(self, name)} must be >= 0")
@@ -322,6 +342,7 @@ CLUSTER_FIELDS = tuple(
     if f.name not in {
         "height", "width", "rule", "density", "seed", "pattern",
         "pattern_offset", "max_epochs", "kernel", "steps_per_call",
+        "halo_width", "mesh_shape",
         "checkpoint_dir", "checkpoint_every", "checkpoint_format",
         "render_every", "render_max_cells", "probe_window", "log_file",
         "metrics_every", "obs_digest", "role",

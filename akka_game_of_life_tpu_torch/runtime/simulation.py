@@ -1,8 +1,8 @@
 """Standalone simulation driver: config → board → stepper → observer.
 
 Counterpart of ``akka_game_of_life_tpu/runtime/simulation.py`` for one
-device.  The board lives on the device in one of three layouts, as in the
-JAX package:
+device or a device mesh driven by one process.  The board lives on the
+device in one of three layouts, as in the JAX package:
 
 - ``words``: a binary radius-1 rule on a width that is a multiple of 32,
   (H, W/32) int32 words;
@@ -35,17 +35,41 @@ LtL and ``matmul`` is not ported.  This differs from the JAX package's
 XLA: the results are equal bit for bit, and on the card the plain versions
 are no path at all, so ``auto`` takes the kernels.
 
-The device is the caller's choice: ``cuda`` unless ``device="cpu"`` is
-passed.  On a CUDA device the kernels step the board; one that fails to
-build or launch raises.  On the CPU the same wrappers run their plain
-versions.  Nothing falls back.
+The devices are the caller's choice: every visible card unless a device
+(``"cpu"``, ``"cuda:1"``) or a sequence of devices is passed; a sequence may
+repeat a device.  On a CUDA device the kernels step the board; one that
+fails to build or launch raises.  On the CPU the same wrappers run their
+plain versions.  Nothing falls back.
+
+**The mesh** (the JAX package's rule): the board is sharded over a
+(rows, cols) :class:`~..parallel.mesh.GridMesh` when ``mesh_shape`` is set,
+or when there are several devices and the kernel has a sharded form (every
+kernel but ``pallas`` with LtL).  Packed boards auto-mesh as rows (n, 1),
+dense boards as square as the device count allows.  The board is then a
+list of tiles, one per mesh slot, stepped by
+
+=================  ===============================  ============================
+layout             auto / pallas                    bitpack / dense
+=================  ===============================  ============================
+words              ``sharded_sweep_step_fn``        ``sharded_packed2d_step_fn``
+planes             ``sharded_gen_sweep_step_fn``    ``sharded_gen_step_fn``
+dense              ``halo.sharded_step_fn`` (LtL, odd widths, ``kernel=dense``)
+=================  ===============================  ============================
+
+``auto`` takes the dense layout on a mesh that does not divide the packed
+board; LtL on a mesh steps dense (the LtL kernel has no sharded form, as in
+the JAX package), and ``kernel=pallas`` with LtL and a ``mesh_shape``
+raises.  Population, samples and probe windows are cut from the tiles that
+hold them, the digest folds per-tile lanes (``parallel/digest.py``), and a
+checkpoint gathers the layout to the host and saves what a single-device
+run saves, so any run resumes any other, meshed or not, in either package.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +84,17 @@ from akka_game_of_life_tpu_torch.ops import (
     packed_sweep,
 )
 from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
+from akka_game_of_life_tpu_torch.parallel import digest as pdigest
+from akka_game_of_life_tpu_torch.parallel import halo, mesh as pmesh
+from akka_game_of_life_tpu_torch.parallel.packed_halo2d import (
+    sharded_gen_step_fn,
+    sharded_packed2d_step_fn,
+    word_halo_width,
+)
+from akka_game_of_life_tpu_torch.parallel.sweep_halo import (
+    sharded_gen_sweep_step_fn,
+    sharded_sweep_step_fn,
+)
 from akka_game_of_life_tpu_torch.runtime.checkpoint import CheckpointStore
 from akka_game_of_life_tpu_torch.runtime.config import (
     SimulationConfig,
@@ -85,6 +120,21 @@ def resolve_device(device=None) -> torch.device:
             "to run the plain PyTorch version on the CPU"
         )
     return dev
+
+
+def resolve_devices(device=None) -> List[torch.device]:
+    """The devices a run may use: every visible card for ``None`` or
+    ``"cuda"``, the one device named otherwise, or each of a sequence
+    (repeats allowed).  Raises where CUDA is wanted and absent."""
+    if device is None or str(device) == "cuda":
+        resolve_device("cuda")
+        return pmesh.visible_devices()
+    if isinstance(device, (str, torch.device)):
+        return [resolve_device(device)]
+    devices = [resolve_device(d) for d in device]
+    if not devices:
+        raise ValueError("no devices given")
+    return devices
 
 
 def _pattern(config: SimulationConfig) -> np.ndarray:
@@ -151,7 +201,9 @@ def _crosses(prev_epoch: int, epoch: int, every: int) -> bool:
 
 
 class Simulation:
-    """One simulation run on one device, resumable from checkpoints."""
+    """One simulation run on one device or a mesh of them, resumable from
+    checkpoints.  ``board`` is a tensor on one device, a list of tiles (one
+    per mesh slot, row-major) on a mesh."""
 
     def __init__(
         self,
@@ -166,13 +218,32 @@ class Simulation:
                 f"(frontend/backend); the standalone run does not honour them"
             )
         self.config = config
-        self.device = resolve_device(device)
+        self.devices = resolve_devices(device)
         self.rule = resolve_rule(config.rule)
+        # The LtL kernel has no sharded form: an explicit kernel=pallas for
+        # LtL pins one device, and with a mesh_shape _resolve_kernel raises.
+        unsharded = config.kernel == "pallas" and self.rule.kind == "ltl"
+        self._use_mesh = config.mesh_shape is not None or (
+            len(self.devices) > 1 and not unsharded
+        )
         self.kernel = self._resolve_kernel()
         if self.kernel in ("dense", "ltl_sweep"):
             self.layout = "dense"
         else:
             self.layout = "words" if self.rule.is_binary else "planes"
+        self.mesh: Optional[pmesh.GridMesh] = None
+        if self._use_mesh:
+            if self.layout == "dense":
+                self.mesh = pmesh.make_grid_mesh(config.mesh_shape, self.devices)
+                pmesh.tile_shape(config.shape, self.mesh)
+                halo.validate_tile_shape(
+                    self.mesh, config.shape, config.halo_width, self.rule.radius
+                )
+            else:
+                self.mesh = pmesh.make_grid_mesh(self._packed_mesh_shape(), self.devices)
+                if self.kernel == "bitpack":
+                    self._validate_packed_mesh()
+        self.device = self.devices[0]
         self.observer = observer or BoardObserver(
             render_every=config.render_every,
             render_max_cells=config.render_max_cells,
@@ -185,6 +256,7 @@ class Simulation:
             else None
         )
         self._steppers: Dict[int, Callable] = {}
+        self._digest = None
         self.epoch = 0
         h, w = config.shape
         expect = {
@@ -213,13 +285,15 @@ class Simulation:
             payload = initial_planes(config, self.rule.states)
         else:
             payload = initial_board(config)
-        if self.layout == "dense":
+        if self.mesh is not None:
+            self.board = pmesh.shard_board(payload, self.mesh)
+        elif self.layout == "dense":
             self.board = torch.from_numpy(np.ascontiguousarray(payload, np.uint8)).to(self.device)
         else:
             self.board = bitpack.words_from_numpy(payload, self.device)
 
     def _resolve_kernel(self) -> str:
-        """The stepper for this rule and width (module docstring table):
+        """The stepper for this rule and width (module docstring tables):
         ``sweep``, ``gen_sweep`` or ``ltl_sweep`` (the CUDA kernels on a
         CUDA device), or the plain ``bitpack`` and ``dense`` steppers."""
         cfg, rule = self.config, self.rule
@@ -243,7 +317,12 @@ class Simulation:
                         "(the diamond runs the cumsum path on kernel=dense)"
                     )
                 return "dense"
-            return "dense" if kernel == "dense" else "ltl_sweep"
+            if kernel == "pallas" and self._use_mesh:
+                raise ValueError(
+                    "kernel=pallas for ltl is single-device (no sharded "
+                    "form); use kernel=dense on a mesh"
+                )
+            return "dense" if kernel == "dense" or self._use_mesh else "ltl_sweep"
         if kernel == "dense":
             return "dense"
         if cfg.width % bitpack.LANE_BITS:
@@ -254,7 +333,50 @@ class Simulation:
             )
         if kernel == "bitpack":
             return "bitpack"
+        if self._use_mesh and not self._packed_mesh_divides():
+            if kernel == "auto":
+                return "dense"
+            if cfg.mesh_shape is not None:
+                raise ValueError(
+                    f"kernel=pallas on a {self._packed_mesh_shape()} mesh: the "
+                    f"packed grid ({cfg.height} rows x {cfg.width // 32} "
+                    f"words) does not divide evenly into its tiles"
+                )
+            # No mesh was asked for: the sweep runs on one device.
+            self._use_mesh = False
         return "sweep" if rule.is_binary else "gen_sweep"
+
+    def _packed_mesh_shape(self) -> Tuple[int, int]:
+        return self.config.mesh_shape or (len(self.devices), 1)
+
+    def _packed_mesh_divides(self) -> bool:
+        cfg = self.config
+        rows, cols = self._packed_mesh_shape()
+        return not (cfg.height % rows or (cfg.width // bitpack.LANE_BITS) % cols)
+
+    def _validate_packed_mesh(self) -> None:
+        """The plain sharded packed step needs tiles at least as deep as
+        its halo (``halo_width`` rows, ``word_halo_width`` words)."""
+        cfg = self.config
+        rows, cols = self._packed_mesh_shape()
+        s = self._halo_for(cfg.steps_per_call)
+        if not self._packed_mesh_divides() or (
+            cfg.height // rows < s
+            or (cfg.width // bitpack.LANE_BITS) // cols < word_halo_width(s)
+        ):
+            raise ValueError(
+                f"packed grid ({cfg.height} rows x {cfg.width // 32} words) "
+                f"cannot shard over mesh {(rows, cols)} with {s} steps per "
+                f"exchange; use kernel=dense or a different mesh"
+            )
+
+    def _halo_for(self, k: int) -> int:
+        """Steps per exchange of a k-step chunk on the plain sharded paths:
+        ``halo_width``, lowered to a divisor of k."""
+        halo_w = min(self.config.halo_width, k)
+        while k % halo_w:
+            halo_w -= 1
+        return halo_w
 
     def _pack(self, board: np.ndarray) -> np.ndarray:
         """A dense host board in this run's layout."""
@@ -266,21 +388,42 @@ class Simulation:
 
     def _stepper(self, k: int) -> Callable:
         if k not in self._steppers:
-            rule = self.rule
-            if self.kernel == "sweep":
-                run = packed_sweep.packed_multi_step_fn(rule, k)
-            elif self.kernel == "gen_sweep":
-                run = gen_sweep.gen_multi_step_fn(rule, k)
-            elif self.kernel == "ltl_sweep":
-                run = ltl_sweep.ltl_multi_step_fn(rule, k)
-            elif self.kernel == "bitpack" and self.layout == "words":
-                run = bitpack.packed_multi_step_fn(rule, k)
-            elif self.kernel == "bitpack":
-                run = bitpack_gen.gen_multi_step_fn(rule, k)
-            else:
-                run = get_model(rule).run(k)
-            self._steppers[k] = run
+            self._steppers[k] = (
+                self._single_stepper(k) if self.mesh is None else self._mesh_stepper(k)
+            )
         return self._steppers[k]
+
+    def _single_stepper(self, k: int) -> Callable:
+        rule = self.rule
+        if self.kernel == "sweep":
+            return packed_sweep.packed_multi_step_fn(rule, k)
+        if self.kernel == "gen_sweep":
+            return gen_sweep.gen_multi_step_fn(rule, k)
+        if self.kernel == "ltl_sweep":
+            return ltl_sweep.ltl_multi_step_fn(rule, k)
+        if self.kernel == "bitpack" and self.layout == "words":
+            return bitpack.packed_multi_step_fn(rule, k)
+        if self.kernel == "bitpack":
+            return bitpack_gen.gen_multi_step_fn(rule, k)
+        return get_model(rule).run(k)
+
+    def _mesh_stepper(self, k: int) -> Callable:
+        mesh, rule = self.mesh, self.rule
+        if self.kernel == "sweep":
+            return sharded_sweep_step_fn(mesh, rule, steps_per_call=k)
+        if self.kernel == "gen_sweep":
+            return sharded_gen_sweep_step_fn(mesh, rule, steps_per_call=k)
+        if self.kernel == "bitpack" and self.layout == "words":
+            return sharded_packed2d_step_fn(
+                mesh, rule, steps_per_call=k, halo_rows=self._halo_for(k)
+            )
+        if self.kernel == "bitpack":
+            return sharded_gen_step_fn(
+                mesh, rule, steps_per_call=k, halo_rows=self._halo_for(k)
+            )
+        return halo.sharded_step_fn(
+            mesh, rule, steps_per_call=k, halo_width=self._halo_for(k)
+        )
 
     # -- core loop -----------------------------------------------------------
 
@@ -306,8 +449,10 @@ class Simulation:
         return self.epoch
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        devices = self.mesh.distinct_devices() if self.mesh is not None else [self.device]
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _probe_due(self, render: bool) -> bool:
         cfg = self.config
@@ -318,24 +463,66 @@ class Simulation:
             and self.epoch % cfg.render_every == 0
         )
 
+    # -- the board, one tile or a mesh of them ---------------------------------
+
+    def _tiles(self) -> List[torch.Tensor]:
+        return [self.board] if self.mesh is None else list(self.board)
+
+    def _cells(self, ys: np.ndarray, xs: np.ndarray) -> np.ndarray:
+        """Host uint8 cells at the global rows ``ys`` × cell columns ``xs``
+        (sorted int arrays), cut on the device from the tiles that hold
+        them: O(len(ys)·len(xs)) fetched."""
+        rows, cols = self.mesh.shape if self.mesh is not None else (1, 1)
+        th, tw = self.config.height // rows, self.config.width // cols
+        tiles = self._tiles()
+        bands = []
+        for r in range(rows):
+            ly = ys[(ys >= r * th) & (ys < (r + 1) * th)] - r * th
+            if not len(ly):
+                continue
+            parts = []
+            for c in range(cols):
+                lx = xs[(xs >= c * tw) & (xs < (c + 1) * tw)] - c * tw
+                if len(lx):
+                    parts.append(self._tile_cells(tiles[r * cols + c], ly, lx))
+            bands.append(np.concatenate(parts, axis=1))
+        return np.concatenate(bands, axis=0)
+
+    def _tile_cells(self, tile: torch.Tensor, ly: np.ndarray, lx: np.ndarray) -> np.ndarray:
+        rows = torch.from_numpy(ly).to(tile.device)
+        if self.layout == "dense":
+            return tile[rows][:, torch.from_numpy(lx).to(tile.device)].cpu().numpy()
+        if self.layout == "words":
+            return bitpack.cells_at(tile, rows, lx).cpu().numpy()
+        view = bitpack.cells_at(tile[0], rows, lx)
+        for k in range(1, tile.shape[0]):
+            view = view | (bitpack.cells_at(tile[k], rows, lx) << k)
+        return view.cpu().numpy()
+
+    def _host_layout(self) -> np.ndarray:
+        """The board in its layout on the host (packed words and planes as
+        uint32), gathered from the tiles on a mesh — O(board)."""
+        if self.mesh is not None:
+            return pmesh.gather(self.board, self.mesh)
+        if self.layout == "dense":
+            return self.board.cpu().numpy()
+        return bitpack.words_to_numpy(self.board)
+
     def _population(self) -> int:
         """Cells in state 1 (alive, or WireWorld's electron heads)."""
-        if self.layout == "dense":
-            return int((self.board == 1).sum())
-        words = self.board if self.layout == "words" else bitpack_gen.alive_plane(self.board)
-        return int(bitpack.population_rows(words).sum())
+        total = 0
+        for tile in self._tiles():
+            if self.layout == "dense":
+                total += int((tile == 1).sum())
+            else:
+                words = tile if self.layout == "words" else bitpack_gen.alive_plane(tile)
+                total += int(bitpack.population_rows(words).sum())
+        return total
 
     def _sample(self, sy: int, sx: int) -> np.ndarray:
         """Every sy-th row and sx-th column of the board, as host uint8."""
-        if self.layout == "dense":
-            return self.board[::sy, ::sx].cpu().numpy()
-        sample = bitpack.sample_packed_core(sy, sx, self.config.width)
-        if self.layout == "words":
-            return sample(self.board).cpu().numpy()
-        view = sample(self.board[0])
-        for k in range(1, self.board.shape[0]):
-            view = view | (sample(self.board[k]) << k)
-        return view.cpu().numpy()
+        h, w = self.config.shape
+        return self._cells(np.arange(0, h, sy), np.arange(0, w, sx))
 
     def _observe(self, *, render: bool) -> None:
         """Population (always), a strided sample (at render cadence), the
@@ -364,18 +551,31 @@ class Simulation:
             self.observer.observe_window(self.epoch, win, cfg.probe_window)
 
     def board_digest(self) -> int:
-        """The 64-bit digest of the current board (~8 fetched bytes)."""
-        width = self.config.width
+        """The 64-bit digest of the current board (~8 fetched bytes; on a
+        mesh, the fold of each tile's lanes)."""
+        cfg = self.config
+        if self.mesh is not None:
+            if self._digest is None:
+                self._digest = {
+                    "words": lambda: pdigest.sharded_packed2d_digest_fn(self.mesh, cfg.shape),
+                    "planes": lambda: pdigest.sharded_gen_digest_fn(
+                        self.mesh, cfg.shape, self.rule.states
+                    ),
+                    "dense": lambda: pdigest.sharded_dense_digest_fn(self.mesh, cfg.shape),
+                }[self.layout]()
+            return odigest.value(self._digest(self.board))
         if self.layout == "words":
-            lanes = odigest.digest_packed(self.board, width)
+            lanes = odigest.digest_packed(self.board, cfg.width)
         elif self.layout == "planes":
-            lanes = odigest.digest_planes(self.board, width)
+            lanes = odigest.digest_planes(self.board, cfg.width)
         else:
             lanes = odigest.digest_dense(self.board)
         return odigest.value(lanes)
 
     def checkpoint(self) -> None:
-        """Save the board of the current epoch in its layout (synchronous)."""
+        """Save the board of the current epoch in its layout (synchronous;
+        a mesh's tiles are gathered first, so the file is the same as a
+        single-device run's)."""
         if self.store is None:
             raise RuntimeError("no checkpoint_dir configured")
         cfg = self.config
@@ -385,11 +585,10 @@ class Simulation:
         rule = self.rule.rulestring()
         t0 = time.perf_counter()
         if self.layout == "dense":
-            self.store.save(self.epoch, self.board.cpu().numpy(), rule, meta=meta)
+            self.store.save(self.epoch, self._host_layout(), rule, meta=meta)
         else:
             self.store.save_packed32(
-                self.epoch, bitpack.words_to_numpy(self.board), cfg.shape, rule,
-                meta=meta,
+                self.epoch, self._host_layout(), cfg.shape, rule, meta=meta,
             )
         if cfg.metrics_every:
             print(
@@ -400,35 +599,22 @@ class Simulation:
             )
 
     def board_window(self, y0: int, y1: int, x0: int, x1: int) -> np.ndarray:
-        """A (y1-y0, x1-x0) uint8 window of the board, fetched O(window): on
-        the packed layouts whole word columns are sliced on the device,
-        unpacked and trimmed on the host."""
+        """A (y1-y0, x1-x0) uint8 window of the board, fetched O(window)."""
         if not (0 <= y0 < y1 <= self.config.height):
             raise ValueError(f"bad row window [{y0}, {y1})")
         if not (0 <= x0 < x1 <= self.config.width):
             raise ValueError(f"bad col window [{x0}, {x1})")
-        if self.layout == "dense":
-            return self.board[y0:y1, x0:x1].cpu().numpy()
-        lane = bitpack.LANE_BITS
-        w0, w1 = x0 // lane, -(-x1 // lane)
-        off = x0 - w0 * lane
-        if self.layout == "words":
-            cells = bitpack.unpack_np(bitpack.words_to_numpy(self.board[y0:y1, w0:w1]))
-        else:
-            cells = bitpack_gen.unpack_gen_np(
-                bitpack.words_to_numpy(self.board[:, y0:y1, w0:w1])
-            )
-        return cells[:, off : off + (x1 - x0)]
+        return self._cells(np.arange(y0, y1), np.arange(x0, x1))
 
     def board_host(self) -> np.ndarray:
         """The full board as host uint8 — O(board); for tests and small
         boards."""
-        if self.layout == "dense":
-            return self.board.cpu().numpy()
-        words = bitpack.words_to_numpy(self.board)
+        board = self._host_layout()
         if self.layout == "words":
-            return bitpack.unpack_np(words)
-        return bitpack_gen.unpack_gen_np(words)
+            return bitpack.unpack_np(board)
+        if self.layout == "planes":
+            return bitpack_gen.unpack_gen_np(board)
+        return board
 
     def close(self) -> None:
         self.observer.close()

@@ -13,20 +13,11 @@ lifted from cells to tiles and made properly toroidal.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, List, Tuple
 
+from akka_game_of_life_tpu_torch.parallel.mesh import factor_2d
+
 TileId = Tuple[int, int]  # (tile_row, tile_col)
-
-
-def factor_2d(n: int) -> Tuple[int, int]:
-    """Factor a count into the most-square (rows, cols) grid (a copy of the
-    JAX package's ``parallel/mesh.py`` helper, which imports jax)."""
-    best = (n, 1)
-    for r in range(1, int(math.isqrt(n)) + 1):
-        if n % r == 0:
-            best = (n // r, r)
-    return best
 
 
 @dataclasses.dataclass(frozen=True)

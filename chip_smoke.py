@@ -18,6 +18,14 @@ paths through its CLI:
 - Larger-than-Life (``bugs`` on a random 16384² torus, 60 epochs) through
   the LtL step, with digests equal to the plain dense run on the card and a
   resume;
+- the mesh: the board sharded over four mesh slots (four cards where the
+  machine has them, else four slots on one card) through ``Simulation(cfg,
+  device=[...])``: the headline on (4, 1) and (2, 2) and WireWorld on (2, 2)
+  through the sharded sweeps, ``bugs`` on (2, 2) through the sharded dense
+  step, each reaching the single-device runs' digests at every cadence
+  epoch, with resumes from a meshed checkpoint on one device and from a
+  single-device checkpoint on the mesh; the sharded sweeps are held
+  bit-exact against the plain sharded steppers on the card;
 - the cluster (a random 16384² Conway torus, 120 epochs in 10-epoch
   exchanges): the in-process harness with two ``torch`` workers on the card,
   each binary chunk through the packed sweep, then the ``frontend`` and two
@@ -25,8 +33,10 @@ paths through its CLI:
   checkpoint; both end on the digests of the plain packed ``run`` on the
   card.
 
-Then it times each kernel at its main-path shape, and the worker's chunk
-engine step by step at the cluster's slab.  Each phase prints one
+The single-device runs name ``cuda:0``, so they stay on one card on a
+machine with several.  Then it times each kernel at its main-path shape,
+the mesh's halo exchange and per-tile sweeps, and the worker's chunk engine
+step by step at the cluster's slab.  Each phase prints one
 JSON line; the ``kernels`` line and the card's name and power limit come
 before the last line, which is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero; without CUDA, or without the
@@ -57,8 +67,15 @@ HEADLINE = ROOT / "examples" / "headline-65536.toml"
 WIREWORLD = ROOT / "examples" / "wireworld-16384.toml"
 OUT = ROOT / "chiprun_out"
 KERNELS = ("packed_sweep", "gen_sweep", "ltl_sweep")
-# The cluster worker's chunk engine steps through the packed sweep's source.
-KERNEL_SOURCE = {"worker_chunk": "packed_sweep"}
+# The cluster worker's chunk engine and the sharded sweeps step through the
+# packed and plane sweeps' sources.
+KERNEL_SOURCE = {
+    "worker_chunk": "packed_sweep",
+    "sharded_sweep": "packed_sweep",
+    "sharded_gen_sweep": "gen_sweep",
+}
+WIRINGS = ("worker_chunk", "sharded_sweep", "sharded_gen_sweep")
+SINGLE = "cuda:0"  # the single-device runs' device
 
 RULES = ["conway", "highlife", "day-and-night", "seeds", "life-without-death"]
 SMALL_SHAPES = [(1, 1), (3, 1), (37, 3), (64, 2), (1000, 33)]
@@ -79,7 +96,7 @@ LTL_FULL_SHAPE = (16384, 16384)
 LTL_RUN = [
     "--rule", "bugs", "--height", "16384", "--width", "16384", "--seed", "0",
     "--max-epochs", "60", "--steps-per-call", "10", "--metrics-every", "10",
-    "--obs-digest", "--checkpoint-every", "30", "--device", "cuda",
+    "--obs-digest", "--checkpoint-every", "30", "--device", SINGLE,
 ]
 LTL_RESUME_FROM = 30
 
@@ -104,6 +121,19 @@ CLUSTER_TICK = "200ms"  # the node-loss run lasts >= 120 x 0.2 s
 CLUSTER_KILL_AFTER = 30  # epoch whose checkpoint must be final before the kill
 CLUSTER_DEVICE = "cuda"
 WAIT_S = 240  # bound on every wait of the multi-process run
+
+# The mesh: four slots, the headline on (4, 1) and (2, 2), WireWorld and
+# bugs on (2, 2); the sharded sweeps against the plain sharded steppers on
+# these meshes, at 10, 31 and 60 generations per call.
+MESH_SLOTS = 4
+MESH_PARITY_SHAPES = [(1, 1), (4, 1), (2, 2), (1, 4)]
+MESH_PARITY_STEPS = [10, 31, 60]
+# The main path's own tiles, random: (layout, mesh, board words, steps per call).
+MESH_MAIN_CASES = [
+    ("words", (4, 1), FULL_SHAPE, 60),
+    ("words", (2, 2), FULL_SHAPE, 60),
+    ("planes", (2, 2), GEN_WIRE_SHAPE, 10),
+]
 _DIGEST_LINE = re.compile(r"^epoch (\d+): digest=([0-9a-f]{16})$", re.M)
 
 _METRICS = re.compile(r"^epoch (\d+): pop=(\d+) .* digest=([0-9a-f]{16})$", re.M)
@@ -216,8 +246,8 @@ class Errors:
     uint8 cells."""
 
     def __init__(self):
-        self.max = {name: 0 for name in KERNELS}
-        self.checks = {name: 0 for name in KERNELS}
+        self.max = {name: 0 for name in KERNELS + WIRINGS}
+        self.checks = {name: 0 for name in KERNELS + WIRINGS}
 
     def hold(self, name: str, got, plain, what: str) -> None:
         import torch
@@ -419,7 +449,7 @@ def pattern_path(path: Path, kernel: str, tmp: Path, card, *,
     zero_counts()
     text, run_s = run_cli(
         ["run", "--config", str(path), "--obs-digest",
-         "--checkpoint-dir", str(ckpt), "--device", "cuda"],
+         "--checkpoint-dir", str(ckpt), "--device", SINGLE],
         f"{name}_run.log",
     )
     counts = read_counts()
@@ -446,7 +476,7 @@ def pattern_path(path: Path, kernel: str, tmp: Path, card, *,
     zero_counts()
     text2, _ = run_cli(
         ["run", "--config", str(path), "--obs-digest",
-         "--checkpoint-dir", str(resume), "--device", "cuda"],
+         "--checkpoint-dir", str(resume), "--device", SINGLE],
         f"{name}_resume.log",
     )
     resumed, _ = parse_run(text2)
@@ -468,7 +498,7 @@ def pattern_path(path: Path, kernel: str, tmp: Path, card, *,
         observer_cell_updates_per_s=summary["cell_updates_per_sec"],
         card=card["name_power"],
     )
-    return counts[kernel]
+    return {"launches": counts[kernel], "expected": expected, "run_s": run_s, "ckpt": ckpt}
 
 
 def ltl_path(tmp: Path, card):
@@ -517,7 +547,326 @@ def ltl_path(tmp: Path, card):
         dense_run_cell_updates_per_s=cells * 60 / dense_s,
         card=card["name_power"],
     )
-    return auto_counts["ltl_sweep"]
+    return auto_counts["ltl_sweep"], dense, dense_s
+
+
+# -- the mesh ---------------------------------------------------------------
+
+
+def mesh_devices(card):
+    """Four distinct cards where the machine has them, else four slots on
+    card 0."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n >= MESH_SLOTS:
+        devices = [f"cuda:{i}" for i in range(MESH_SLOTS)]
+        which = f"{MESH_SLOTS} distinct cards"
+    else:
+        devices = [SINGLE] * MESH_SLOTS
+        which = f"{SINGLE} in all {MESH_SLOTS} slots ({n} card(s) visible)"
+    emit("mesh_devices", devices=devices, which=which, card=card["name_power"])
+    return devices
+
+
+def mesh_sweeps(config, mesh_shape, start: int, end: int) -> int:
+    """Sweep launches of epochs (start, end] on a mesh, from the design: the
+    mesh's tiles hold a whole call's generations in their halos (p = s rows;
+    on two mesh columns hw = 2 words, good for 63 generations), so each call
+    is one exchange and every tile runs the single-device sweeps of the
+    call."""
+    return mesh_shape[0] * mesh_shape[1] * planned_sweeps(config, start, end)
+
+
+def run_sim(config, devices, log_name: str):
+    """The port's Simulation as ``run`` drives it, on ``devices``: advance
+    to ``max_epochs``; returns (output text, wall seconds, mesh shape)."""
+    import torch
+
+    from akka_game_of_life_tpu_torch.runtime.render import BoardObserver
+    from akka_game_of_life_tpu_torch.runtime.simulation import Simulation
+
+    buf = io.StringIO()
+    observer = BoardObserver(
+        render_every=config.render_every, render_max_cells=config.render_max_cells,
+        metrics_every=config.metrics_every, out=buf,
+    )
+    t0 = time.perf_counter()
+    with Simulation(config, observer=observer, device=devices) as sim:
+        sim.advance(max(0, config.max_epochs - sim.epoch))
+        for dev in set(devices):
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        mesh = None if sim.mesh is None else sim.mesh.shape
+    (OUT / log_name).write_text(buf.getvalue())
+    return buf.getvalue(), seconds, mesh
+
+
+def _check_pattern_run(name, text, expected, epochs):
+    metrics, windows = parse_run(text)
+    check(sorted(metrics) == epochs, f"{name}: metrics epochs {sorted(metrics)}")
+    for epoch in epochs:
+        pop, dig, win = expected[epoch]
+        check(metrics[epoch] == (pop, dig),
+              f"{name} epoch {epoch}: {metrics[epoch]} != reference {(pop, dig)}")
+        if win is not None:
+            check(windows.get(epoch) == win, f"{name} epoch {epoch}: probe window differs")
+    return metrics
+
+
+def mesh_headline(devices, single, tmp: Path, card):
+    """The headline on (4, 1) with checkpoints, resumed from its middle
+    checkpoint on one card, the single-device run's middle checkpoint
+    resumed on the mesh, then the headline on (2, 2): every digest equal to
+    the CPU reference, launches equal to the plan."""
+    import dataclasses
+
+    from akka_game_of_life_tpu_torch.runtime.config import load_config
+
+    base = load_config(str(HEADLINE), {"obs_digest": True})
+    expected, epochs = single["expected"], cadence(base)
+    last, mid = base.max_epochs, base.checkpoint_every
+    cells = base.height * base.width * base.max_epochs
+    runs = {}
+    for shape in ((4, 1), (2, 2)):
+        ckpt = tmp / f"mesh{shape[0]}{shape[1]}-ckpt" if shape == (4, 1) else None
+        config = dataclasses.replace(
+            base, mesh_shape=shape, checkpoint_dir=None if ckpt is None else str(ckpt)
+        )
+        want = mesh_sweeps(config, shape, 0, last)
+        zero_counts()
+        text, run_s, got_shape = run_sim(config, devices, f"mesh{shape[0]}x{shape[1]}_headline.log")
+        counts = read_counts()
+        check(got_shape == shape, f"headline mesh {got_shape} != {shape}")
+        check(counts == {"packed_sweep": want, "gen_sweep": 0, "ltl_sweep": 0},
+              f"headline on {shape}: launches {counts}, expected {want}")
+        metrics = _check_pattern_run(f"headline on {shape}", text, expected, epochs)
+        runs[shape] = (metrics, counts, run_s)
+
+    # The meshed run's middle checkpoint resumed on one card (the CLI).
+    resume = tmp / "mesh-resume-single"
+    resume.mkdir()
+    shutil.copy(tmp / "mesh41-ckpt" / f"ckpt_{mid:012d}.npz", resume)
+    zero_counts()
+    text, _ = run_cli(
+        ["run", "--config", str(HEADLINE), "--obs-digest",
+         "--checkpoint-dir", str(resume), "--device", SINGLE],
+        "mesh_resume_single.log",
+    )
+    resumed, _ = parse_run(text)
+    check(resumed.get(last) == runs[(4, 1)][0][last],
+          f"meshed checkpoint resumed on one card: {resumed.get(last)}")
+    check(read_counts()["packed_sweep"] == planned_sweeps(base, mid, last),
+          "meshed checkpoint resumed on one card: launches")
+    # The single-device run's middle checkpoint resumed on the mesh.
+    resume = tmp / "single-resume-mesh"
+    resume.mkdir()
+    shutil.copy(single["ckpt"] / f"ckpt_{mid:012d}.npz", resume)
+    config = dataclasses.replace(base, mesh_shape=(4, 1), checkpoint_dir=str(resume))
+    zero_counts()
+    text, _, _ = run_sim(config, devices, "single_resume_mesh.log")
+    on_mesh, _ = parse_run(text)
+    check(on_mesh.get(last) == runs[(4, 1)][0][last],
+          f"single-device checkpoint resumed on the mesh: {on_mesh.get(last)}")
+    check(read_counts()["packed_sweep"] == mesh_sweeps(config, (4, 1), mid, last),
+          "single-device checkpoint resumed on the mesh: launches")
+    for shape, (metrics, counts, run_s) in runs.items():
+        emit(
+            "main_path", config=f"Simulation({HEADLINE.name}, mesh_shape={shape})",
+            kernel="sharded_sweep", devices=devices, epochs=last, launches=counts,
+            digests={e: metrics[e][1] for e in epochs},
+            run_s=run_s, run_cell_updates_per_s=cells / run_s,
+            single_device_run_s=single["run_s"],
+            single_device_run_cell_updates_per_s=cells / single["run_s"],
+            resumed_from=mid if shape == (4, 1) else None,
+            card=card["name_power"],
+        )
+    return runs[(4, 1)][1]["packed_sweep"]
+
+
+def mesh_wireworld(devices, single, card):
+    """WireWorld on (2, 2) through the sharded plane sweep: the CPU
+    reference's digests, windows and head count at every cadence epoch."""
+    import dataclasses
+
+    from akka_game_of_life_tpu_torch.runtime.config import load_config
+
+    config = dataclasses.replace(
+        load_config(str(WIREWORLD), {"obs_digest": True}), mesh_shape=(2, 2),
+        checkpoint_dir=None,
+    )
+    want = mesh_sweeps(config, (2, 2), 0, config.max_epochs)
+    zero_counts()
+    text, run_s, shape = run_sim(config, devices, "mesh2x2_wireworld.log")
+    counts = read_counts()
+    check(shape == (2, 2), f"wireworld mesh {shape}")
+    check(counts == {"packed_sweep": 0, "gen_sweep": want, "ltl_sweep": 0},
+          f"wireworld on (2, 2): launches {counts}, expected {want}")
+    epochs = cadence(config)
+    metrics = _check_pattern_run("wireworld on (2, 2)", text, single["expected"], epochs)
+    cells = config.height * config.width * config.max_epochs
+    emit(
+        "main_path", config=f"Simulation({WIREWORLD.name}, mesh_shape=(2, 2))",
+        kernel="sharded_gen_sweep", devices=devices, epochs=config.max_epochs,
+        launches=counts, digests={e: metrics[e][1] for e in epochs},
+        run_s=run_s, run_cell_updates_per_s=cells / run_s,
+        single_device_run_s=single["run_s"], card=card["name_power"],
+    )
+    return counts["gen_sweep"]
+
+
+def mesh_bugs(devices, dense, dense_s, card):
+    """bugs at 16384² on (2, 2) through the sharded dense step (the LtL
+    kernel has no sharded form): the plain dense run's digests, no kernel
+    launched."""
+    from akka_game_of_life_tpu_torch.runtime.config import load_config
+
+    config = load_config(None, {
+        "rule": "bugs", "height": LTL_FULL_SHAPE[0], "width": LTL_FULL_SHAPE[1],
+        "seed": 0, "max_epochs": 60, "steps_per_call": 10, "metrics_every": 10,
+        "obs_digest": True, "mesh_shape": (2, 2),
+    })
+    zero_counts()
+    text, run_s, shape = run_sim(config, devices, "mesh2x2_bugs.log")
+    counts = read_counts()
+    metrics, _ = parse_run(text)
+    check(shape == (2, 2), f"bugs mesh {shape}")
+    check(sum(counts.values()) == 0, f"bugs on (2, 2) launched kernels: {counts}")
+    check(metrics == dense, "bugs on (2, 2): digests differ from the plain dense run's")
+    cells = config.height * config.width * config.max_epochs
+    emit(
+        "main_path", config="Simulation(bugs 16384², mesh_shape=(2, 2))",
+        kernel="dense (halo.sharded_step_fn)", devices=devices, epochs=60,
+        launches=counts, digests={e: metrics[e][1] for e in sorted(metrics)},
+        run_s=run_s, run_cell_updates_per_s=cells / run_s,
+        single_device_dense_run_s=dense_s, card=card["name_power"],
+    )
+
+
+def mesh_parity(errors, rng, devices, card):
+    """The sharded sweeps against the plain sharded steppers on the card,
+    bit for bit, tile by tile, on random words and planes, and against the
+    plain step of the whole torus on one card (which shares no exchange
+    code with either): every parity mesh at 10, 31 and 60 generations per
+    call; (2, 2) one-word, 31-row tiles at 31 (the row halo fills the tile
+    and s = 32·hw − 1); and the main path's own tiles (random, so every halo
+    carries set bits): the headline's words on (4, 1) and (2, 2) at 60,
+    WireWorld's planes on (2, 2) at 10."""
+    import numpy as np
+    import torch
+
+    from akka_game_of_life_tpu_torch import parallel
+    from akka_game_of_life_tpu_torch.ops import bitpack, bitpack_gen
+
+    cases = [
+        (kind, shape, (1024 * shape[0], 64 * shape[1]), steps)
+        for shape in MESH_PARITY_SHAPES for steps in MESH_PARITY_STEPS
+        for kind in ("words", "planes")
+    ] + [(kind, (2, 2), (62, 2), 31) for kind in ("words", "planes")] + MESH_MAIN_CASES
+    for kind, shape, (h, nw), steps in cases:
+        n = shape[0] * shape[1]
+        mesh = parallel.make_grid_mesh(shape, devices[:n])
+        if kind == "words":
+            name, lead, rule = "sharded_sweep", (), "conway"
+            fast = parallel.sharded_sweep_step_fn(mesh, rule, steps_per_call=steps)
+            plain = parallel.sharded_packed2d_step_fn(mesh, rule, steps_per_call=steps)
+            torus = bitpack.packed_multi_step
+        else:
+            name, lead, rule = "sharded_gen_sweep", (2,), "wireworld"
+            fast = parallel.sharded_gen_sweep_step_fn(mesh, rule, steps_per_call=steps)
+            plain = parallel.sharded_gen_step_fn(mesh, rule, steps_per_call=steps)
+            torus = bitpack_gen.gen_multi_step
+        host = rng.integers(0, 2**32, size=(*lead, h, nw), dtype=np.uint32)
+        x = parallel.shard_board(host, mesh)
+        got, want = fast(x), plain(x)
+        whole = torus(torch.from_numpy(host.view(np.int32)).to(devices[0]), rule, steps)
+        th, tw = h // shape[0], nw // shape[1]
+        for i, (a, b) in enumerate(zip(got, want)):
+            r, c = mesh.coords(i)
+            what = f"{shape} {(*lead, h, nw)} s={steps} tile {i}"
+            errors.hold(name, a, b, what)
+            cut = whole[..., r * th : (r + 1) * th, c * tw : (c + 1) * tw]
+            errors.hold(name, a, cut.to(a.device), f"{what} vs the whole torus")
+        del host, x, got, want, whole
+        torch.cuda.empty_cache()
+    emit(
+        "kernel_vs_plain", kernel="sharded_sweep + sharded_gen_sweep",
+        replaces="akka_game_of_life_tpu/parallel/pallas_halo.py:163,216",
+        cases=[[c[0], list(c[1]), list(c[2]), c[3]] for c in cases],
+        tile_checks={k: errors.checks[k] for k in ("sharded_sweep", "sharded_gen_sweep")},
+        max_abs_err={k: errors.max[k] for k in ("sharded_sweep", "sharded_gen_sweep")},
+        card=card["name_power"],
+    )
+
+
+def mesh_timing(card, rng, devices):
+    """On the headline's (4, 1) and (2, 2) tiles and WireWorld's (2, 2)
+    tiles: one halo exchange, one sweep of one padded tile (against its
+    bound and its plain version), and one 60-generation call of the
+    sharded stepper over all four tiles."""
+    import numpy as np
+    import torch
+
+    from akka_game_of_life_tpu_torch import bench, parallel
+    from akka_game_of_life_tpu_torch.ops import gen_sweep, packed_sweep
+    from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
+    from akka_game_of_life_tpu_torch.parallel.packed_halo2d import refresh_halos
+
+    rate, k = card["int32_ops_per_s"], packed_sweep.DEFAULT_STEPS_PER_SWEEP
+    conway, wire = resolve_rule("conway"), resolve_rule("wireworld")
+    out = {}
+    for label, shape, m, rule, board_words, spc in (
+        ("headline", (4, 1), 1, conway, FULL_SHAPE, 60),
+        ("headline", (2, 2), 1, conway, FULL_SHAPE, 60),
+        ("wireworld", (2, 2), 2, wire, GEN_WIRE_SHAPE, 10),
+    ):
+        mesh = parallel.make_grid_mesh(shape, devices)
+        th, tw = board_words[0] // shape[0], board_words[1] // shape[1]
+        step = (parallel.sharded_sweep_step_fn if m == 1 else parallel.sharded_gen_sweep_step_fn)(
+            mesh, rule, steps_per_call=spc)
+        plan = step.plan((th, tw))
+        p, hw = plan.halo_rows, plan.halo_words
+        lead = () if m == 1 else (m,)
+        padded = [
+            torch.from_numpy(rng.integers(0, 2**32, size=(*lead, th + 2 * p, tw + 2 * hw),
+                                          dtype=np.uint32).view(np.int32)).to(dev)
+            for dev in mesh.devices
+        ]
+        exchange_ms = bench.time_ms(lambda: refresh_halos(padded, mesh, p, hw), reps=20)
+        moved = 0  # bytes of halo strips each exchange reads and writes
+        if shape[1] > 1:
+            moved += mesh.size * 2 * m * th * hw * 4
+        moved += mesh.size * 2 * m * p * (tw + 2 * hw) * 4
+        tile = padded[0]
+        h_pad, nw_pad = tile.shape[-2:]
+        if m == 1:
+            ms = bench.time_ms(lambda: packed_sweep._launch(tile, rule, k), reps=20)
+            plain = bench.time_ms(lambda: packed_sweep.packed_sweep_reference(tile, rule, k), reps=3, warmup=1)
+            bound = bench.sweep_bound(h_pad, nw_pad, k, rule, rate)
+        else:
+            ms = bench.time_ms(lambda: gen_sweep._launch(tile, rule, k), reps=20)
+            plain = bench.time_ms(lambda: gen_sweep.gen_sweep_reference(tile, rule, k), reps=3, warmup=1)
+            bound = bench.gen_sweep_bound(m, h_pad, nw_pad, k, rule, rate)
+        tiles = [t[..., p : p + th, hw : hw + tw].contiguous() for t in padded]
+        call_ms = bench.time_ms(lambda: step(tiles), reps=5, warmup=1)
+        del padded, tiles
+        torch.cuda.empty_cache()
+        name = "sharded_sweep" if m == 1 else "sharded_gen_sweep"
+        emit(
+            "timing", kernel=name, config=label, mesh=list(shape), devices=devices,
+            tile_words=[th, tw], padded_tile=[h_pad, nw_pad], planes=m, k=k,
+            plan={"depths": list(plan.depths), "halo_rows": p, "halo_words": hw},
+            exchange_ms=exchange_ms, exchange_bytes=moved,
+            exchange_bound_ms=2 * moved / bench.HBM_BYTES_PER_S * 1e3,
+            ms_per_tile_sweep=ms, plain_ms=plain, **bound,
+            share_of_bound=bound["bound_ms"] / ms,
+            call_ms=call_ms, steps_per_call=spc, library_ms=None,
+            library_note="no single PyTorch call computes this step",
+            card=card["name_power"],
+        )
+        if (label, shape) in (("headline", (4, 1)), ("wireworld", (2, 2))):
+            out[name] = (ms, plain, bound)
+    return out
 
 
 def cluster_reference(toml: Path):
@@ -533,7 +882,7 @@ def cluster_reference(toml: Path):
          "--density", str(config.density), "--max-epochs", str(config.max_epochs),
          "--steps-per-call", str(config.exchange_width),
          "--metrics-every", str(config.metrics_every), "--obs-digest",
-         "--kernel", "bitpack", "--device", CLUSTER_DEVICE],
+         "--kernel", "bitpack", "--device", SINGLE],
         "cluster_reference.log",
     )
     check(sum(read_counts().values()) == 0, f"reference launched kernels: {read_counts()}")
@@ -902,15 +1251,25 @@ def main() -> int:
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        launches["packed_sweep"] = pattern_path(
+        headline = pattern_path(
             HEADLINE, "packed_sweep", tmp, card,
             reference_side=REFERENCE_SIDE, conserved=False,
         )
-        launches["gen_sweep"] = pattern_path(
+        wireworld = pattern_path(
             WIREWORLD, "gen_sweep", tmp, card,
             reference_side=WIREWORLD_REFERENCE_SIDE, conserved=True,
         )
-        launches["ltl_sweep"] = ltl_path(tmp, card)
+        launches["packed_sweep"] = headline["launches"]
+        launches["gen_sweep"] = wireworld["launches"]
+        launches["ltl_sweep"], ltl_dense, ltl_dense_s = ltl_path(tmp, card)
+        torch.cuda.empty_cache()
+        devices = mesh_devices(card)
+        launches["sharded_sweep"] = mesh_headline(devices, headline, tmp, card)
+        torch.cuda.empty_cache()
+        launches["sharded_gen_sweep"] = mesh_wireworld(devices, wireworld, card)
+        mesh_bugs(devices, ltl_dense, ltl_dense_s, card)
+        torch.cuda.empty_cache()
+        mesh_parity(errors, rng, devices, card)
         torch.cuda.empty_cache()
         toml = tmp / "cluster-16384.toml"
         toml.write_text(CLUSTER_TOML)
@@ -929,6 +1288,8 @@ def main() -> int:
     err, ms, plain_ms, bound, chunk_ms = chunk_timing(card, rng)
     errors.max["worker_chunk"] = err
     times["worker_chunk"] = (ms, plain_ms, bound)
+    torch.cuda.empty_cache()
+    times.update(mesh_timing(card, rng, devices))
     emit("done", seconds=time.perf_counter() - t_start, card=card["name_power"])
 
     sources = {
@@ -936,6 +1297,8 @@ def main() -> int:
         "gen_sweep": "akka_game_of_life_tpu/ops/pallas_gen.py:50",
         "ltl_sweep": "akka_game_of_life_tpu/ops/pallas_ltl.py:66",
         "worker_chunk": "akka_game_of_life_tpu/runtime/backend.py:128",
+        "sharded_sweep": "akka_game_of_life_tpu/parallel/pallas_halo.py:163",
+        "sharded_gen_sweep": "akka_game_of_life_tpu/parallel/pallas_halo.py:216",
     }
     entries = [
         {
@@ -951,9 +1314,9 @@ def main() -> int:
             "bound_by": times[name][2]["bound_by"],
             "library_ms": None,
         }
-        for name in (*KERNELS, "worker_chunk")
+        for name in (*KERNELS, *WIRINGS)
     ]
-    entries[-1]["chunk_ms"] = chunk_ms
+    entries[len(KERNELS)]["chunk_ms"] = chunk_ms
     print(json.dumps({"kernels": entries}), flush=True)
     print(card["name_power"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -208,3 +208,85 @@ def test_worker_chunk_full_slab_matches_plain():
         _torch_engine(conway, device="cuda")(small, 1, 10), _np_chunk(small, 1, 10, conway)
     )
     assert packed_sweep.packed_sweep.launches == before
+
+
+@pytest.mark.cuda
+def test_deepest_sweep_on_every_card():
+    """Both sweeps opt into more than 48 KB of shared memory on each card
+    they launch on (the opt-in applies to one device): a k = 31 sweep, which
+    needs it, runs on every visible card."""
+    _need_gpu()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    k = packed_sweep.MAX_STEPS_PER_SWEEP
+    words = _words((1000, 33), 31)
+    planes = _words((2, 1000, 33), 32)
+    for i in range(torch.cuda.device_count()):
+        dev = f"cuda:{i}"
+        x = bitpack.words_from_numpy(words, dev)
+        got = packed_sweep.packed_sweep(x, "conway", k)
+        assert torch.equal(got, packed_sweep.packed_sweep_reference(x, "conway", k)), dev
+        p = bitpack_gen.planes_from_numpy(planes, dev)
+        got = gen_sweep.gen_sweep(p, "brians-brain", k)
+        assert torch.equal(got, gen_sweep.gen_sweep_reference(p, "brians-brain", k)), dev
+
+
+def _mesh_devices(n):
+    """n distinct cards where the machine has them, else n slots on one."""
+    count = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(n)] if count >= n else ["cuda:0"] * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (4, 1), (2, 2), (1, 4)])
+@pytest.mark.parametrize("steps", [10, 31, 60])
+def test_sharded_sweeps_match_plain_sharded(mesh_shape, steps):
+    """The sharded sweeps on the card, bit-exact against the plain sharded
+    steppers on the card, with tiles x sweeps launches."""
+    _need_gpu()
+    from akka_game_of_life_tpu_torch import parallel
+
+    n = mesh_shape[0] * mesh_shape[1]
+    mesh = parallel.make_grid_mesh(mesh_shape, _mesh_devices(n))
+    rng = np.random.default_rng(steps)
+    h, w = 256 * mesh_shape[0], 64 * 32 * mesh_shape[1]
+    words = parallel.shard_board(rng.integers(0, 2**32, size=(h, w // 32), dtype=np.uint32), mesh)
+    sweep = parallel.sharded_sweep_step_fn(mesh, "conway", steps_per_call=steps)
+    plan = sweep.plan(words[0].shape)
+    before = packed_sweep.packed_sweep.launches
+    got = sweep(words)
+    assert packed_sweep.packed_sweep.launches - before == (
+        n * len(plan.depths) * steps // plan.steps_per_exchange
+    )
+    plain = parallel.sharded_packed2d_step_fn(mesh, "conway", steps_per_call=steps, halo_rows=1)(words)
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b), (mesh_shape, steps)
+    planes = parallel.shard_board(
+        rng.integers(0, 2**32, size=(2, h, w // 32), dtype=np.uint32), mesh
+    )
+    before = gen_sweep.gen_sweep.launches
+    got = parallel.sharded_gen_sweep_step_fn(mesh, "wireworld", steps_per_call=steps)(planes)
+    assert gen_sweep.gen_sweep.launches - before == (
+        n * len(plan.depths) * steps // plan.steps_per_exchange
+    )
+    plain = parallel.sharded_gen_step_fn(mesh, "wireworld", steps_per_call=steps, halo_rows=1)(planes)
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b), (mesh_shape, steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["conway", "wireworld", "bugs"])
+def test_meshed_simulation_on_card_matches_cpu(rule):
+    _need_gpu()
+    kw = dict(height=128, width=256, rule=rule, seed=5, steps_per_call=12, obs_digest=True)
+    if rule == "wireworld":
+        kw["pattern"] = "wireworld-clock"
+    runs = {}
+    for devices, mesh_shape in ((["cpu"], None), (_mesh_devices(4), (2, 2))):
+        cfg = SimulationConfig(**kw, mesh_shape=mesh_shape)
+        sim = Simulation(cfg, observer=BoardObserver(out=io.StringIO()), device=devices)
+        sim.advance(48)
+        runs[devices[0]] = (sim.board_digest(), sim.board_window(0, 40, 0, 70))
+    (d_cpu, w_cpu), (d_card, w_card) = runs.values()
+    assert d_cpu == d_card
+    np.testing.assert_array_equal(w_cpu, w_card)

@@ -43,6 +43,13 @@ def test_sources_exist():
     assert len(SOURCES) > 10
 
 
+def test_parallel_modules_are_covered():
+    parallel = PORT / "parallel"
+    names = {p.stem for p in parallel.glob("*.py")}
+    assert {"mesh", "halo", "packed_halo", "packed_halo2d", "sweep_halo", "digest"} <= names
+    assert all(parallel / f"{name}.py" in SOURCES for name in names)
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_imports(path):
     for mod in _imported_modules(path):

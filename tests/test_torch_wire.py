@@ -218,7 +218,7 @@ def test_cluster_keys_load_like_jax(tmp_path):
     "key,value",
     [
         ("serve_cluster", True), ("serve_max_sessions", 4), ("frontend_seeds", "a:1"),
-        ("ff_enabled", False), ("mesh_shape", [2, 2]), ("distributed", True),
+        ("ff_enabled", False), ("num_processes", 2), ("distributed", True),
         ("obs_defer", True), ("sparse_kernel", True), ("backend", "actor"),
         ("obs_profile_max_s", 5),
     ],
