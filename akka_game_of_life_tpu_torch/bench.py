@@ -1,24 +1,15 @@
-"""Card facts, CUDA-event timing and the kernels' bounds, plus a tile sweep.
+"""Card facts, CUDA-event timing and the kernels' bounds.
 
-``python -m akka_game_of_life_tpu_torch.bench [--depths 2,3,...]`` builds the
-packed-sweep kernel once per tile variant (``TILE_ROWS`` x ``STRIPS`` below,
-given to ``nvcc`` as ``-D`` flags), times each variant at 65536² for every
-sweep depth k, checks each bit-exact against the plain version, and prints
-one JSON line per configuration (and writes them to
-``chiprun_out/sweep_tiles.jsonl``).  It needs an NVIDIA GPU and fails
-without one.  ``chip_smoke.py`` uses the helpers here for its timings.
+``chip_smoke.py`` uses these helpers for its timings.  The tile sweep that
+lived here is ``python -m akka_game_of_life_tpu_torch tune`` now
+(``runtime/autotune.py``), for all three kernels.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
 import subprocess
-import sys
-from pathlib import Path
 from typing import Callable, Dict
 
-import numpy as np
 import torch
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s.
@@ -28,11 +19,6 @@ HBM_BYTES_PER_S = 3.35e12
 # and bitwise logic; a LOP3 (any three-input logic function) or a funnel
 # shift is one such result.
 INT32_OPS_PER_CLOCK_PER_SM = 64
-
-# The tile sweep's grid and board.
-TILE_ROWS = (32, 64, 128, 256, 512)
-STRIPS = (4, 8, 16)
-SWEEP_SHAPE = (65536, 2048)
 
 
 def nvidia_smi(query: str) -> str:
@@ -117,60 +103,3 @@ def _bound(bytes_ms: float, ops_ms: float) -> Dict:
         "bytes_ms": bytes_ms,
         "ops_ms": ops_ms,
     }
-
-
-def main(argv=None) -> int:
-    from akka_game_of_life_tpu_torch.ops import _build, bitpack, packed_sweep
-    from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
-
-    p = argparse.ArgumentParser(prog="akka_game_of_life_tpu_torch.bench")
-    p.add_argument("--depths", default="2,3,4,5,6,10,12,15,20,30")
-    args = p.parse_args(argv)
-
-    info = card()
-    variants = {
-        (tb, ny): (f"-DTILE_ROWS={tb}", f"-DSTRIPS={ny}")
-        for tb in TILE_ROWS for ny in STRIPS
-    }
-    build_s = {
-        f"{tb}x{ny}": _build.load("packed_sweep", defines).seconds
-        for (tb, ny), defines in variants.items()
-    }
-    print(json.dumps({"card": info, "build_s": build_s}), flush=True)
-    rule = resolve_rule("conway")
-    h, nw = SWEEP_SHAPE
-    x = bitpack.words_from_numpy(
-        np.random.default_rng(0).integers(0, 2**32, size=(h, nw), dtype=np.uint32),
-        "cuda",
-    )
-    out_dir = Path("chiprun_out")
-    out_dir.mkdir(exist_ok=True)
-    rows = []
-    for k in (int(v) for v in args.depths.split(",")):
-        plain = packed_sweep.packed_sweep_reference(x, rule, k)
-        bound = sweep_bound(h, nw, k, rule, info["int32_ops_per_s"])
-        for (tb, ny), defines in variants.items():
-            run = lambda: packed_sweep._launch(x, rule, k, defines)
-            if not torch.equal(run(), plain):
-                raise SystemExit(f"mismatch at k={k} tile_rows={tb} strips={ny}")
-            ms = time_ms(run, reps=10)
-            row = {
-                "k": k, "tile_rows": tb, "strips": ny,
-                "ms_per_sweep": ms, "ms_per_generation": ms / k,
-                "cell_updates_per_s": h * nw * 32 * k / (ms / 1e3),
-                "share_of_bound": bound["bound_ms"] / ms, **bound,
-                "card": info["name_power"],
-            }
-            rows.append(row)
-            print(json.dumps(row), flush=True)
-        del plain
-    with open(out_dir / "sweep_tiles.jsonl", "w") as f:
-        for row in rows:
-            f.write(json.dumps(row) + "\n")
-    best = min(rows, key=lambda r: r["ms_per_generation"])
-    print(json.dumps({"best": best}), flush=True)
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

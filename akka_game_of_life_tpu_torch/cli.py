@@ -1,13 +1,17 @@
-"""Command line of the PyTorch port: ``run``, ``frontend`` and ``backend``.
+"""Command line of the PyTorch port: ``run``, ``frontend``, ``backend``,
+``tune``, ``selftest``, ``checkpoints`` and ``models``.
 
 Counterpart of ``akka_game_of_life_tpu/cli.py``'s subcommands of the same
-names, with the flags the port honours.  ``run`` and ``backend`` take
-``--device`` (default ``cuda``; they raise when CUDA is absent rather than
-moving to the CPU); ``run --device cuda`` uses every visible card, sharding
-the board over them, and ``--mesh ROWSxCOLS`` asks for a mesh of exactly
-that many devices:
+names, with the flags the port honours.  ``run``, ``backend``, ``tune`` and
+``selftest`` take ``--device`` (default ``cuda``; they raise when CUDA is
+absent rather than moving to the CPU); ``run --device cuda`` uses every
+visible card, sharding the board over them, and ``--mesh ROWSxCOLS`` asks
+for a mesh of exactly that many devices:
 
     python -m akka_game_of_life_tpu_torch run --config examples/headline-65536.toml
+    python -m akka_game_of_life_tpu_torch tune --size 16384 --rule wireworld
+    python -m akka_game_of_life_tpu_torch selftest --kernel pallas
+    python -m akka_game_of_life_tpu_torch checkpoints ckpt-65536 --validate
     python -m akka_game_of_life_tpu_torch frontend --port 2601 --min-backends 2 \\
         --height 4096 --width 4096 --max-epochs 120 --exchange-width 10
     python -m akka_game_of_life_tpu_torch backend --port 2601 --name alpha
@@ -122,6 +126,47 @@ def _parse_mesh(spec):
 def _run_parser(sub) -> argparse.ArgumentParser:
     p = sub.add_parser("run", help="standalone simulation on one device or a mesh")
     _add_board(p)
+    _add_observability(p)
+    p.add_argument("--tick", help="wall-clock pacing per chunk (e.g. 200ms); 0 = free-run")
+    p.add_argument(
+        "--pallas-block-rows", type=int,
+        help="output rows per block of the CUDA kernels under --kernel "
+        "pallas (a tile variant, built at first use; `tune` finds one); "
+        "default: the kernel's own tile",
+    )
+    p.add_argument(
+        "--pallas-vmem-limit-mb", type=int,
+        help="the JAX package's Mosaic VMEM budget: accepted at 0 only",
+    )
+    p.add_argument(
+        "--checkpoint-sync", action="store_true", default=None,
+        help="block at each checkpoint until the save is durable (default: "
+        "saves run on a writer thread while stepping continues)",
+    )
+    p.add_argument("--render-max-cells", type=int)
+    p.add_argument(
+        "--obs-defer", action="store_true", default=None,
+        help="dispatch cadence observations on the device and read them one "
+        "chunk later, while the next chunk runs (lines appear one chunk "
+        "late; values are identical)",
+    )
+    p.add_argument("--obs-programs", choices=["on", "off"], default=None)
+    p.add_argument("--log-file")
+    p.add_argument(
+        "--inject-faults", action="store_true", default=None,
+        help="arm the crash injector (schedule from the config file's "
+        "[fault_injection]); needs --checkpoint-dir",
+    )
+    p.add_argument(
+        "--trace-dir",
+        help="capture a torch.profiler trace of the run into this directory "
+        "(trace.json, Chrome trace-event / Perfetto)",
+    )
+    p.add_argument(
+        "--dump-rle", metavar="PATH",
+        help="write the final board as a Golly/LifeWiki .rle file (O(board) "
+        "host fetch)",
+    )
     p.add_argument(
         "--device", type=_run_device, default="cuda",
         help="cuda (every visible card; a mesh when there are several), "
@@ -175,6 +220,17 @@ def _add_observability(p: argparse.ArgumentParser) -> None:
         help="directory for flight-recorder dumps on crashes, redeploys and "
         "SIGTERM (default: artifacts; empty string disables)",
     )
+
+
+def _observability_overrides(args: argparse.Namespace) -> dict:
+    return {
+        "metrics_file": args.metrics_file,
+        "metrics_port": args.metrics_port,
+        "log_events": args.log_events,
+        "trace_file": args.trace_file,
+        "flight_dir": args.flight_dir,
+        "obs_programs": _ON_OFF[args.obs_programs],
+    }
 
 
 def _add_chaos_net(p: argparse.ArgumentParser) -> None:
@@ -260,12 +316,7 @@ def _frontend_overrides(args: argparse.Namespace) -> dict:
         "tiles_per_worker": args.tiles_per_worker,
         "render_max_cells": args.render_max_cells,
         "log_file": args.log_file,
-        "metrics_file": args.metrics_file,
-        "metrics_port": args.metrics_port,
-        "log_events": args.log_events,
-        "trace_file": args.trace_file,
-        "flight_dir": args.flight_dir,
-        "obs_programs": _ON_OFF[args.obs_programs],
+        **_observability_overrides(args),
         "obs_cost_interval_s": _duration(args.obs_cost_interval_s),
         "sparse_cluster": _ON_OFF[args.sparse_cluster],
         "ring_pack": _ON_OFF[args.ring_pack],
@@ -336,23 +387,145 @@ def _sigterm_as_interrupt():
             _signal.signal(_signal.SIGTERM, prev)
 
 
-def _run(args: argparse.Namespace) -> int:
-    overrides = {
+def _run_overrides(args: argparse.Namespace) -> dict:
+    out = {
         **_board_overrides(args),
         "steps_per_call": args.steps_per_call,
         "kernel": args.kernel,
+        "pallas_block_rows": args.pallas_block_rows,
+        "pallas_vmem_limit_mb": args.pallas_vmem_limit_mb,
         "halo_width": args.halo_width,
         "mesh_shape": _parse_mesh(args.mesh),
+        "tick_s": _duration(args.tick),
+        "checkpoint_async": False if args.checkpoint_sync else None,
+        "render_max_cells": args.render_max_cells,
+        **_observability_overrides(args),
+        "obs_defer": args.obs_defer,
+        "log_file": args.log_file,
     }
-    cfg = load_config(args.config, overrides)
+    if args.inject_faults:
+        out["fault_injection"] = {"enabled": True}
+    return out
+
+
+def _check_dump_rle(args: argparse.Namespace, cfg) -> None:
+    """Fail before the run, not after it: RLE's alphabet stops at state 24,
+    and an unwritable path would lose the board at the very end."""
+    from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
+
+    states = resolve_rule(cfg.rule).states
+    if states - 1 > 24:
+        raise SystemExit(
+            f"--dump-rle: rule {cfg.rule!r} has {states} states; RLE's "
+            f"alphabet stops at 24 (25 states incl. dead)"
+        )
+    try:
+        with open(args.dump_rle, "a", encoding="utf-8"):
+            pass
+    except OSError as e:
+        raise SystemExit(f"--dump-rle: cannot write {args.dump_rle!r}: {e}")
+
+
+@contextlib.contextmanager
+def _metrics_endpoint(cfg, sim):
+    """Live /metrics, /healthz, /trace, /programs, /cost and /profile for
+    the standalone run while its body executes."""
+    if not cfg.metrics_port:
+        yield
+        return
+    from akka_game_of_life_tpu_torch.obs import MetricsServer
+    from akka_game_of_life_tpu_torch.obs.programs import get_programs, http_routes
+    from akka_game_of_life_tpu_torch.runtime.profiling import ProfilerCapture
+
+    programs = get_programs().configure(
+        node="standalone", metrics=sim.metrics, enabled=cfg.obs_programs
+    )
+    profiler = ProfilerCapture(
+        cfg.flight_dir or "artifacts",
+        node="standalone",
+        max_seconds=cfg.obs_profile_max_s,
+        min_interval_s=cfg.obs_profile_min_interval_s,
+    )
+    server = MetricsServer(
+        sim.metrics,
+        port=cfg.metrics_port,
+        health=lambda: {"ok": True, "epoch": sim.epoch},
+        tracer=sim.tracer,
+        routes=http_routes(registry=programs, profile=profiler.capture),
+    )
+    print(
+        f"metrics on :{server.port}/metrics "
+        f"(+/healthz,/trace,/programs,/cost,/profile)",
+        flush=True,
+    )
+    try:
+        yield
+    finally:
+        server.close()
+
+
+def _run(args: argparse.Namespace) -> int:
+    cfg = load_config(args.config, _run_overrides(args))
+    if args.dump_rle:
+        _check_dump_rle(args, cfg)
     if cfg.max_epochs is None:
         cfg.max_epochs = 100
+    from akka_game_of_life_tpu_torch.runtime.signals import flight_dump_on_signals
     from akka_game_of_life_tpu_torch.runtime.simulation import Simulation
 
-    with Simulation(cfg, device=args.device) as sim:
-        # --max-epochs is the absolute end epoch: a resumed run advances the
-        # remaining max_epochs - E.
-        sim.advance(max(0, cfg.max_epochs - sim.epoch))
+    sim = Simulation(cfg, device=args.device)
+    # SIGTERM maps to ^C first; the flight dump wraps it, so an orchestrator
+    # stop dumps the span/event ring, then takes the graceful path.
+    with _sigterm_as_interrupt(), flight_dump_on_signals(
+        sim.tracer.flight
+    ), _metrics_endpoint(cfg, sim):
+        try:
+            return _run_simulation(args, cfg, sim)
+        except KeyboardInterrupt:
+            # Outside advance()'s graceful window (start-up, summary,
+            # epilogue): no save; the cadence checkpoints are durable.
+            print(
+                f"interrupted outside the run loop at epoch {sim.epoch}",
+                file=sys.stderr,
+                flush=True,
+            )
+            return 130
+
+
+def _run_simulation(args: argparse.Namespace, cfg, sim) -> int:
+    """The ``run`` body between the signal handlers' install and restore."""
+    from akka_game_of_life_tpu_torch.obs.programs import get_programs
+    from akka_game_of_life_tpu_torch.runtime import profiling
+
+    interrupted = False
+    with sim, profiling.trace(args.trace_dir):
+        try:
+            # --max-epochs is the absolute end epoch: a resumed run advances
+            # the remaining max_epochs - E.
+            sim.advance(max(0, cfg.max_epochs - sim.epoch))
+        except KeyboardInterrupt:
+            # Graceful ^C / SIGTERM: the board is consistent at the last
+            # completed chunk; make it durable so the run resumes from here.
+            # Masked so a second signal cannot abort the promised save.
+            interrupted = True
+            if sim.store is not None:
+                from akka_game_of_life_tpu_torch.runtime.signals import mask_interrupts
+
+                with mask_interrupts():
+                    sim.checkpoint()
+                    sim.flush()
+                print(
+                    f"interrupted at epoch {sim.epoch}; checkpoint written",
+                    file=sys.stderr,
+                    flush=True,
+                )
+            else:
+                print(
+                    f"interrupted at epoch {sim.epoch} (no durable save: no "
+                    f"checkpoint dir)",
+                    file=sys.stderr,
+                    flush=True,
+                )
         stats = sim.observer.summary()
         if stats is not None:
             mesh = {} if sim.mesh is None else {"mesh": list(sim.mesh.shape)}
@@ -362,11 +535,160 @@ def _run(args: argparse.Namespace) -> int:
                 file=sim.observer.out,
                 flush=True,
             )
-        if cfg.render_every == 0 and cfg.metrics_every == 0:
-            from akka_game_of_life_tpu_torch.runtime.render import render_ascii
+    # End-of-run device-memory watermarks, as the cataloged gauges and, under
+    # --trace-dir, one [profile] line per device.
+    try:
+        final_dev_stats = get_programs().refresh_device_gauges()
+    except Exception:  # noqa: BLE001 — observability must not fail the run
+        final_dev_stats = {}
+    if args.trace_dir:
+        for dev, stats in final_dev_stats.items():
+            print(f"[profile] {dev}: {stats}", flush=True)
+    if interrupted:
+        return 130
+    final = None
+    if args.dump_rle:
+        from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
+        from akka_game_of_life_tpu_torch.utils.patterns import encode_rle
 
-            print(f"epoch {sim.epoch}:", file=sim.observer.out)
-            print(render_ascii(sim.board_host(), 128), file=sim.observer.out)
+        final = sim.board_host()
+        with open(args.dump_rle, "w", encoding="utf-8") as f:
+            f.write(encode_rle(final, resolve_rule(cfg.rule).rulestring()))
+        print(f"wrote {args.dump_rle}", flush=True)
+    if cfg.render_every == 0 and cfg.metrics_every == 0:
+        from akka_game_of_life_tpu_torch.runtime.render import render_ascii
+
+        if final is None:
+            final = sim.board_host()
+        print(f"epoch {sim.epoch}:")
+        print(render_ascii(final, cfg.render_max_cells))
+    return 0
+
+
+def _tune_parser(sub) -> None:
+    p = sub.add_parser(
+        "tune",
+        help="autotune the CUDA kernels' (tile rows, steps_per_sweep) on this "
+        "device: one JSON line per measured point (best first), then the "
+        "winning flags",
+    )
+    p.add_argument("--size", type=int, default=65536)
+    p.add_argument("--steps-per-call", type=int, default=64)
+    p.add_argument(
+        "--blocks", default="64,128,192,256", metavar="B1,B2,...",
+        help="tile rows per block (the kernel's -DTILE_ROWS)",
+    )
+    p.add_argument("--sweeps", default="4,8,16", metavar="K1,K2,...",
+                   help="generations per sweep (LtL: always 1)")
+    p.add_argument("--timed-calls", type=int, default=2)
+    p.add_argument("--vmem-limit-mb", type=int, default=0,
+                   help="the JAX package's Mosaic budget: 0 only")
+    p.add_argument("--rule", default="conway")
+    p.add_argument("--device", type=_run_device, default="cuda",
+                   help="cuda (the kernels), cuda:N or cpu (their plain versions)")
+
+
+def _tune(args: argparse.Namespace) -> int:
+    from akka_game_of_life_tpu_torch.runtime.autotune import (
+        best_flags,
+        best_point,
+        sweep,
+    )
+
+    results = sweep(
+        args.size,
+        steps_per_call=args.steps_per_call,
+        blocks=[int(v) for v in args.blocks.split(",")],
+        sweeps=[int(v) for v in args.sweeps.split(",")],
+        timed_calls=args.timed_calls,
+        vmem_limit_mb=args.vmem_limit_mb,
+        device=args.device,
+        rule=args.rule,
+    )
+    for p in results:
+        print(json.dumps(p), flush=True)
+    flags = best_flags(results, rule=args.rule)
+    if flags is None:
+        print("no feasible point succeeded", file=sys.stderr)
+        return 1
+    # The machine-readable summary: best_point is the selection best_flags
+    # rendered, so the two cannot drift apart.
+    print(
+        json.dumps({
+            "tune": {"size": args.size, "rule": args.rule},
+            "best": best_point(results),
+            "flags": flags,
+        }),
+        flush=True,
+    )
+    print(f"best: {flags}")
+    return 0
+
+
+def _selftest_parser(sub) -> None:
+    p = sub.add_parser(
+        "selftest",
+        help="run the product self-checks (gun phase, dense oracle, "
+        "checkpoint resume, chaos replay, sharded, families, obs-defer) "
+        "through the public Simulation; one JSON line per check",
+    )
+    p.add_argument(
+        "--kernel", choices=[k for k in KERNEL_CHOICES if k != "matmul"],
+        default="auto",
+        help="kernel the checks drive (default auto — what `run` would pick)",
+    )
+    p.add_argument("--device", type=_run_device, default="cuda",
+                   help="cuda (every visible card), cuda:N or cpu")
+
+
+def _selftest(args: argparse.Namespace) -> int:
+    from akka_game_of_life_tpu_torch.runtime.selftest import run_selftest
+
+    return 1 if run_selftest(kernel=args.kernel, device=args.device) else 0
+
+
+def _checkpoints_parser(sub) -> None:
+    p = sub.add_parser(
+        "checkpoints",
+        help="inspect a checkpoint directory: one JSON line per durable "
+        "epoch (epoch, layout, rule, shape, bytes on disk)",
+    )
+    p.add_argument("dir")
+    p.add_argument(
+        "--validate", action="store_true",
+        help="additionally load each epoch in full and report ok/error "
+        "(exit 1 if any epoch fails)",
+    )
+
+
+def _checkpoints(args: argparse.Namespace) -> int:
+    from akka_game_of_life_tpu_torch.runtime.checkpoint import describe_store
+
+    n = failed = 0
+    for info in describe_store(args.dir, validate=args.validate):
+        print(json.dumps(info), flush=True)
+        n += 1
+        # Unreadable metadata fails even without --validate.
+        failed += ("error" in info) or (info.get("ok") is False)
+    if n == 0:
+        print(f"no checkpoints found in {args.dir}", file=sys.stderr)
+        return 1
+    return 1 if failed else 0
+
+
+def _models(args: argparse.Namespace) -> int:
+    from akka_game_of_life_tpu_torch.ops.rules import NAMED_RULES
+
+    for name in sorted(NAMED_RULES):
+        r = NAMED_RULES[name]
+        print(json.dumps({
+            "name": name,
+            "rulestring": r.rulestring(),
+            "kind": r.kind,
+            "states": r.states,
+            "radius": r.radius,
+            "neighborhood": r.neighborhood,
+        }))
     return 0
 
 
@@ -423,8 +745,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     _run_parser(sub)
     _frontend_parser(sub)
     _backend_parser(sub)
+    _tune_parser(sub)
+    _selftest_parser(sub)
+    _checkpoints_parser(sub)
+    sub.add_parser(
+        "models",
+        help="list the registered rule families (name, rulestring, kind, "
+        "states, radius) as JSON lines",
+    )
     args = parser.parse_args(argv)
-    return {"run": _run, "frontend": _frontend, "backend": _backend}[args.command](args)
+    return {
+        "run": _run,
+        "frontend": _frontend,
+        "backend": _backend,
+        "tune": _tune,
+        "selftest": _selftest,
+        "checkpoints": _checkpoints,
+        "models": _models,
+    }[args.command](args)
 
 
 if __name__ == "__main__":  # pragma: no cover

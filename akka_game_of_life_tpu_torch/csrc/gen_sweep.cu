@@ -17,10 +17,12 @@
 // rows r-1, r, r+1 and the m centre words in registers.
 //
 // Shared memory is 2 buffers x m planes x (tile_rows(m) + 2k) rows x 128 B, so
-// the tile shrinks with m: tile_rows(m) = kRowBudget / m keeps a block near
-// 76 KB at k = 10 for every m (three blocks per SM) and lets the deepest
-// sweep, k = 31, fit the 227 KB a block may opt into at every m <= 8 (a
-// static_assert per instance holds it).  The launch refuses k > 31.
+// the tile shrinks with m: by default tile_rows(m) = kRowBudget / m keeps a
+// block near 76 KB at k = 10 for every m (three blocks per SM) and lets the
+// deepest sweep, k = 31, fit the 227 KB a block may opt into at every m <= 8.
+// `tune` (runtime/autotune.py) and `run --pallas-block-rows B` rebuild with
+// -DTILE_ROWS=B, which sets tile_rows(m) = B at every m; the launch refuses
+// k > 31 and any depth whose tile does not fit (ops/gen_sweep.py:tile_fits).
 //
 // The step is the plane formulas of bitpack_gen, not a per-cell state
 // machine, so plane values that encode no state of the rule evolve exactly
@@ -58,10 +60,18 @@ constexpr int kOutCols = kTileCols - 2;
 constexpr int kMaxSteps = 31;  // one halo word per side holds k <= 31
 constexpr size_t kSmemLimit = 232448;  // 227 KB: a block's opt-in maximum
 
+#ifdef TILE_ROWS
+__host__ __device__ constexpr int tile_rows(int) { return TILE_ROWS; }
+static_assert(TILE_ROWS >= 1, "tile variant out of range");
+#else
 __host__ __device__ constexpr int tile_rows(int m) { return kRowBudget / m; }
+#endif
 
 __host__ __device__ constexpr size_t smem_bytes(int m, int k) {
   return 2ull * m * (tile_rows(m) + 2 * k) * kTileCols * sizeof(uint32_t);
+}
+__host__ __device__ constexpr size_t opt_in_bytes(int m) {
+  return smem_bytes(m, kMaxSteps) < kSmemLimit ? smem_bytes(m, kMaxSteps) : kSmemLimit;
 }
 
 __device__ __forceinline__ void row_sums(uint32_t x, uint32_t &s, uint32_t &c) {
@@ -241,7 +251,7 @@ cudaError_t opt_in_on_current_device() {
   if (!opted_in_on[dev]) {
     const cudaError_t set = cudaFuncSetAttribute(
         gen_sweep_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(M, kMaxSteps));
+        (int)opt_in_bytes(M));
     if (set != cudaSuccess) return set;
     opted_in_on[dev] = true;
   }
@@ -251,10 +261,11 @@ cudaError_t opt_in_on_current_device() {
 template <int M>
 int launch(const void *in, void *out, int H, int NW, int k, unsigned birth,
            unsigned survive1, unsigned wrap_state, int wire, cudaStream_t stream) {
-  static_assert(smem_bytes(M, kMaxSteps) <= kSmemLimit,
-                "the deepest sweep does not fit this plane count");
-  if (k > kMaxSteps) return (int)cudaErrorInvalidValue;
-  // Shared memory past 48 KB is opted into for the deepest sweep, once per
+  if (k > kMaxSteps || smem_bytes(M, k) > kSmemLimit) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // Shared memory past 48 KB is opted into for the deepest sweep that fits,
+  // once per
   // instance and device: cudaFuncSetAttribute applies to the current device
   // only, and a mesh launches on every card it spans.
   const cudaError_t opted_in = opt_in_on_current_device<M>();
@@ -279,7 +290,8 @@ int planes_for(unsigned states) {
 // Launch one k-generation sweep of the (m, H, NW) planes `in` into the
 // distinct buffer `out` on `stream`.  Returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for arguments the kernel does not take
-// (m != ceil(log2 states), WireWorld not on 2 planes, k out of range).
+// (m != ceil(log2 states), WireWorld not on 2 planes, k out of range or its
+// tile too large for shared memory).
 extern "C" int gen_sweep_launch(const void *in, void *out, int m, int H, int NW,
                                 int k, unsigned birth, unsigned survive1,
                                 unsigned states, int wire, void *stream) {

@@ -30,17 +30,35 @@
 // 16384^2, so the bytes bound it.  This first kernel is simple and does more:
 // the horizontal sum re-adds 2R+1 entries per cell where a running sum along
 // the row would need 2, and the tile load wraps every index.
+//
+// Tiles: kTileH = 64 output rows by default, whose window fits the 48 KB a
+// block gets without an opt-in at every R.  `tune` (runtime/autotune.py) and
+// `run --pallas-block-rows B` rebuild with -DTILE_ROWS=B; a variant whose
+// window passes 48 KB opts in once per device, and one past the 227 KB a
+// block may opt into is refused at launch (ops/ltl_sweep.py:tile_fits).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
+#ifndef TILE_ROWS
+#define TILE_ROWS 64  // output rows per block
+#endif
+
 namespace {
 
 constexpr int kTileW = 256;  // output columns per block = threads per block
-constexpr int kTileH = 64;  // output rows per block
+constexpr int kTileH = TILE_ROWS;
 constexpr int kMaxRadius = 10;
 constexpr int kRuleWords = ((2 * kMaxRadius + 1) * (2 * kMaxRadius + 1) + 31) / 32;
+// Dynamic shared memory a block may use: 227 KB with the opt-in, 48 KB
+// without, each less the kernel's static copy of the rule.
+constexpr size_t kRuleBytes = 2 * kRuleWords * sizeof(uint32_t);
+constexpr size_t kSmemLimit = 232448 - kRuleBytes;
+constexpr size_t kSmemDefault = 48 * 1024 - kRuleBytes;
 static_assert(kTileW >= 2 * kMaxRadius, "one extra column per thread holds the halo");
+static_assert(kTileH >= 1, "tile variant out of range");
 
 struct RuleBits {
   uint32_t birth[kRuleWords];
@@ -50,7 +68,9 @@ struct RuleBits {
 constexpr size_t smem_bytes(int r) {
   return (size_t)(kTileH + 2 * r) * (kTileW + 2 * r) + 2 * (kTileW + 2 * r);
 }
-static_assert(smem_bytes(kMaxRadius) <= 48 * 1024, "tile needs an opt-in");
+constexpr size_t opt_in_bytes() {
+  return smem_bytes(kMaxRadius) < kSmemLimit ? smem_bytes(kMaxRadius) : kSmemLimit;
+}
 
 // g modulo n for g in [-n, 2n) in two compares, else by division.
 __device__ __forceinline__ int wrap(int g, int n) {
@@ -119,19 +139,46 @@ ltl_sweep_kernel(const uint8_t *__restrict__ in, uint8_t *__restrict__ out,
   }
 }
 
+// Per-device flags of the shared-memory opt-in, under one lock; only a
+// variant whose window passes 48 KB needs it.
+constexpr int kMaxDevices = 64;
+std::mutex opt_in_lock;
+bool opted_in_on[kMaxDevices];
+
+cudaError_t opt_in_on_current_device() {
+  if (opt_in_bytes() <= kSmemDefault) return cudaSuccess;
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(opt_in_lock);
+  if (!opted_in_on[dev]) {
+    const cudaError_t set = cudaFuncSetAttribute(
+        ltl_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)opt_in_bytes());
+    if (set != cudaSuccess) return set;
+    opted_in_on[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Launch one generation of the (H, W) board `in` into the distinct buffer
 // `out` on `stream`; `birth` and `survive` are bitsets of 14 words over the
 // neighbour count.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// cudaErrorInvalidValue for arguments the kernel does not take (a radius
+// whose window would not fit this variant's shared memory included).
 extern "C" int ltl_sweep_launch(const void *in, void *out, int H, int W, int R,
                                 const unsigned *birth, const unsigned *survive,
                                 void *stream) {
   if (in == out || H < 1 || W < 1 || R < 1 || R > kMaxRadius || !birth ||
-      !survive || (H + kTileH - 1) / kTileH > 65535) {
+      !survive || (H + kTileH - 1) / kTileH > 65535 ||
+      smem_bytes(R) > kSmemLimit) {
     return (int)cudaErrorInvalidValue;
   }
+  const cudaError_t opted_in = opt_in_on_current_device();
+  if (opted_in != cudaSuccess) return (int)opted_in;
   RuleBits rule;
   for (int i = 0; i < kRuleWords; ++i) {
     rule.birth[i] = birth[i];

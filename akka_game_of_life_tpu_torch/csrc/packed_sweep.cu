@@ -37,9 +37,11 @@
 // count predicates from the rule masks where a rule-specialised one needs two
 // LOP3 for Conway, and only 30 of a warp's 32 lanes produce output words.
 //
-// Tiles (chosen by the tile sweep in akka_game_of_life_tpu_torch/bench.py on
-// an H100 at 700 W, see PERF.md): TILE_ROWS = 256 output rows and STRIPS = 8
-// warps by default; the sweep rebuilds with -DTILE_ROWS=.. -DSTRIPS=.. .
+// Tiles: TILE_ROWS = 256 output rows and STRIPS = 8 warps by default (chosen
+// by a tile sweep on an H100 at 700 W, see PERF.md).  `tune`
+// (runtime/autotune.py) and `run --pallas-block-rows B` rebuild with
+// -DTILE_ROWS=B; a variant whose tile does not fit a block's shared memory
+// at depth k is refused at launch (ops/packed_sweep.py:tile_fits says which).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,12 +60,17 @@ namespace {
 constexpr int kTileCols = 32;     // words per shared-memory row (one warp)
 constexpr int kOutCols = kTileCols - 2;
 constexpr int kMaxSteps = 31;     // one halo word per side holds k <= 31
-static_assert(TILE_ROWS >= 1 && STRIPS >= 1 && STRIPS * kTileCols <= 1024,
-              "tile variant out of range");
+constexpr size_t kSmemLimit = 232448;  // 227 KB: a block's opt-in maximum
 
 constexpr size_t smem_bytes(int k) {
   return 2ull * (TILE_ROWS + 2 * k) * kTileCols * sizeof(uint32_t);
 }
+constexpr size_t opt_in_bytes() {
+  return smem_bytes(kMaxSteps) < kSmemLimit ? smem_bytes(kMaxSteps) : kSmemLimit;
+}
+static_assert(TILE_ROWS >= 1 && STRIPS >= 1 && STRIPS * kTileCols <= 1024 &&
+                  smem_bytes(1) <= kSmemLimit,
+              "tile variant out of range");
 
 __device__ __forceinline__ void row_sums(uint32_t x, uint32_t &s, uint32_t &c) {
   const unsigned full = 0xffffffffu;
@@ -185,7 +192,7 @@ cudaError_t opt_in_on_current_device() {
   if (!opted_in_on[dev]) {
     const cudaError_t set = cudaFuncSetAttribute(
         packed_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes(kMaxSteps));
+        (int)opt_in_bytes());
     if (set != cudaSuccess) return set;
     opted_in_on[dev] = true;
   }
@@ -196,15 +203,17 @@ cudaError_t opt_in_on_current_device() {
 
 // Launch one k-generation sweep on `stream`.  `in` and `out` are distinct
 // (H, NW) device buffers.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// cudaErrorInvalidValue for arguments the kernel does not take (a depth whose
+// tile would not fit this variant's shared memory included).
 extern "C" int packed_sweep_launch(const void *in, void *out, int H, int NW,
                                    int k, unsigned birth, unsigned survive1,
                                    void *stream) {
-  if (in == out || H < 1 || NW < 1 || k < 1 || k > kMaxSteps) {
+  if (in == out || H < 1 || NW < 1 || k < 1 || k > kMaxSteps ||
+      smem_bytes(k) > kSmemLimit) {
     return (int)cudaErrorInvalidValue;
   }
-  // Shared memory past 48 KB is opted into for the deepest sweep, once per
-  // device: cudaFuncSetAttribute applies to the current device only, and a
+  // Shared memory past 48 KB is opted into for the deepest sweep that fits,
+  // once per device: cudaFuncSetAttribute applies to the current device only, and a
   // mesh launches on every card it spans.
   const cudaError_t opted_in = opt_in_on_current_device();
   if (opted_in != cudaSuccess) return (int)opted_in;

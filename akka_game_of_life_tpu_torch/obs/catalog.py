@@ -404,7 +404,7 @@ CATALOG = (
      "Device memory high-water mark since process start, per device",
      ("device",)),
     ("gol_profile_captures_total", "counter",
-     "On-demand jax.profiler captures taken (POST /profile)", ()),
+     "On-demand profiler captures taken (POST /profile)", ()),
 )
 
 

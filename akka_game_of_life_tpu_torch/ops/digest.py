@@ -154,6 +154,8 @@ def digest_dense_np(
     lanes = [0, 0]
     for r0 in range(0, h, _NP_BLOCK_ROWS):
         r1 = min(r0 + _NP_BLOCK_ROWS, h)
+        if not arr[r0:r1].any():
+            continue  # an empty block adds nothing (as on the device)
         rows = (np.arange(r0, r1, dtype=np.uint32) + np.uint32(oy))[:, None]
         idx = rows * np.uint32(width) + cols
         state = arr[r0:r1].astype(np.uint32)
@@ -174,9 +176,11 @@ def digest_packed_np(words: np.ndarray, width: int) -> np.ndarray:
     lanes = [0, 0]
     for r0 in range(0, h, _NP_BLOCK_ROWS):
         r1 = min(r0 + _NP_BLOCK_ROWS, h)
+        block = words[r0:r1]
+        if not block.any():
+            continue  # an empty block adds nothing (as on the device)
         rows = np.arange(r0, r1, dtype=np.uint32)[:, None]
         base = rows * np.uint32(width) + wcs
-        block = words[r0:r1]
         for j in range(32):
             idx = base + np.uint32(j)
             bit = (block >> np.uint32(j)) & np.uint32(1)

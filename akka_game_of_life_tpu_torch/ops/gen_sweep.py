@@ -15,6 +15,13 @@ count, ``steps_per_sweep < 1`` and ``n_steps`` not a multiple of
 rounding, ``H % block_rows == 0``) do not bind the CUDA kernel, which wraps
 every index modulo the torus.  Binary rules (one plane) step through
 ``ops/packed_sweep.py``; this kernel takes m = 2..8 planes (3..255 states).
+
+``tile_rows`` (the Pallas API's ``block_rows``) picks a compile-time variant:
+``None`` is the default library, whose tile is ``ROW_BUDGET // m`` rows of
+every plane; another value a library built with ``-DTILE_ROWS=<rows>``, whose
+tile is that many rows at every m.  A variant computes the same planes; only a
+tile whose buffers do not fit a block (:func:`tile_fits`) is refused, with
+``ValueError``, on the CPU too.
 """
 
 from __future__ import annotations
@@ -29,11 +36,50 @@ import torch
 from akka_game_of_life_tpu_torch.ops import bitpack, bitpack_gen
 from akka_game_of_life_tpu_torch.ops.packed_sweep import (
     MAX_STEPS_PER_SWEEP,
+    SMEM_LIMIT_BYTES,
+    TILE_COLS,
     plan_sweeps,
 )
 from akka_game_of_life_tpu_torch.ops.rules import Rule, resolve_rule
 
 PLANE_COUNTS = range(2, 9)
+# The default library's tile: ROW_BUDGET // m output rows of each of m planes
+# (``csrc/gen_sweep.cu``'s kRowBudget).
+ROW_BUDGET = 256
+
+
+def default_tile_rows(m: int) -> int:
+    return ROW_BUDGET // m
+
+
+def smem_bytes(m: int, tile_rows: Optional[int], steps_per_sweep: int) -> int:
+    """Shared memory of one block: two buffers of m planes of (tile + 2k)
+    rows of :data:`TILE_COLS` words."""
+    rows = default_tile_rows(m) if tile_rows is None else tile_rows
+    return 2 * m * (rows + 2 * steps_per_sweep) * TILE_COLS * 4
+
+
+def tile_fits(m: int, tile_rows: Optional[int], steps_per_sweep: int) -> bool:
+    """Does a ``tile_rows`` variant take a ``steps_per_sweep``-deep sweep of
+    m planes?"""
+    return (tile_rows is None or tile_rows >= 1) and (
+        smem_bytes(m, tile_rows, steps_per_sweep) <= SMEM_LIMIT_BYTES
+    )
+
+
+def check_tile(m: int, tile_rows: Optional[int], steps_per_sweep: int) -> None:
+    if not tile_fits(m, tile_rows, steps_per_sweep):
+        raise ValueError(
+            f"tile_rows={tile_rows} at steps_per_sweep={steps_per_sweep} does "
+            f"not fit a block of {m} planes: "
+            f"{smem_bytes(m, tile_rows, steps_per_sweep)} B of shared memory, "
+            f"the limit is {SMEM_LIMIT_BYTES}"
+        )
+
+
+def tile_defines(tile_rows: Optional[int]) -> Tuple[str, ...]:
+    """The ``-D`` flags of a tile variant (``None``: the default library)."""
+    return () if tile_rows is None else (f"-DTILE_ROWS={int(tile_rows)}",)
 
 
 def require_sweep_support(rule: Rule) -> int:
@@ -86,11 +132,12 @@ def gen_sweep_reference(planes: torch.Tensor, rule, steps_per_sweep: int) -> tor
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    """``csrc/gen_sweep.cu`` built at first use."""
+def _library(defines: Tuple[str, ...] = ()):
+    """``csrc/gen_sweep.cu`` built at first use; ``defines``
+    (``-DTILE_ROWS=..``) pick a tile variant."""
     from akka_game_of_life_tpu_torch.ops import _build
 
-    lib = _build.load("gen_sweep").lib
+    lib = _build.load("gen_sweep", defines).lib
     lib.gen_sweep_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
@@ -100,7 +147,12 @@ def _library():
     return lib
 
 
-def _launch(planes: torch.Tensor, rule: Rule, steps_per_sweep: int) -> torch.Tensor:
+def _launch(
+    planes: torch.Tensor,
+    rule: Rule,
+    steps_per_sweep: int,
+    defines: Tuple[str, ...] = (),
+) -> torch.Tensor:
     """Launch the CUDA kernel on a CUDA tensor; raises on anything else,
     including a depth the kernel refuses."""
     m = bitpack_gen.n_planes(rule.states)
@@ -116,7 +168,7 @@ def _launch(planes: torch.Tensor, rule: Rule, steps_per_sweep: int) -> torch.Ten
     birth, survive1 = rule_masks(rule)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     with torch.cuda.device(planes.device):
-        rc = _library().gen_sweep_launch(
+        rc = _library(defines).gen_sweep_launch(
             planes.data_ptr(), out.data_ptr(), m, h, nw, steps_per_sweep,
             birth, survive1, rule.states, int(rule.kind == "wireworld"), stream,
         )
@@ -126,41 +178,48 @@ def _launch(planes: torch.Tensor, rule: Rule, steps_per_sweep: int) -> torch.Ten
     return out
 
 
-def gen_sweep(planes: torch.Tensor, rule, steps_per_sweep: int) -> torch.Tensor:
+def gen_sweep(
+    planes: torch.Tensor, rule, steps_per_sweep: int, *, tile_rows: Optional[int] = None
+) -> torch.Tensor:
     """Advance stacked (m, H, W/32) int32 planes by ``steps_per_sweep``
-    generations in one pass: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor.  ``gen_sweep.launches`` counts kernel
-    launches."""
+    generations in one pass: the CUDA kernel (its ``tile_rows`` variant)
+    for a CUDA tensor, the plain version for a CPU tensor.
+    ``gen_sweep.launches`` counts kernel launches of every variant."""
     rule = resolve_rule(rule)
     m = require_sweep_support(rule)
     _check_planes(planes, m)
     _check_steps(m, steps_per_sweep)
+    check_tile(m, tile_rows, steps_per_sweep)
     if planes.device.type == "cpu":
         return gen_sweep_reference(planes, rule, steps_per_sweep)
-    return _launch(planes, rule, steps_per_sweep)
+    return _launch(planes, rule, steps_per_sweep, tile_defines(tile_rows))
 
 
 gen_sweep.launches = 0
 
 
 def gen_multi_step_fn(
-    rule, n_steps: int, *, steps_per_sweep: Optional[int] = None
+    rule,
+    n_steps: int,
+    *,
+    steps_per_sweep: Optional[int] = None,
+    tile_rows: Optional[int] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """An ``n_steps`` advance built from the sweeps ``plan_sweeps`` gives
     (``packed_sweep.DEFAULT_STEPS_PER_SWEEP`` deep, the last one taking the
-    remainder,
-    or ``steps_per_sweep`` deep where given, which must divide
-    ``n_steps``).  Each sweep writes a fresh buffer; the caller's input is
-    never overwritten."""
+    remainder, or ``steps_per_sweep`` deep where given, which must divide
+    ``n_steps``), through the ``tile_rows`` variant.  Each sweep writes a
+    fresh buffer; the caller's input is never overwritten."""
     rule = resolve_rule(rule)
     m = require_sweep_support(rule)
     depths = plan_sweeps(n_steps, steps_per_sweep)
     for k in set(depths):
         _check_steps(m, k)
+        check_tile(m, tile_rows, k)
 
     def run(planes: torch.Tensor) -> torch.Tensor:
         for k in depths:
-            planes = gen_sweep(planes, rule, k)
+            planes = gen_sweep(planes, rule, k, tile_rows=tile_rows)
         return planes
 
     return run

@@ -11,13 +11,20 @@ Box neighborhoods only, as the Pallas kernel: the diamond raises (it runs
 the plain cumsum path of ``ops/ltl.py``).  Mosaic's ``H % block_rows == 0``
 does not bind the CUDA kernel, which wraps rows and columns modulo the
 torus, so any H and W are taken.
+
+``tile_rows`` (the Pallas API's ``block_rows``) picks a compile-time variant:
+``None`` is the default library (:data:`DEFAULT_TILE_ROWS` output rows per
+block), another value a library built with ``-DTILE_ROWS=<rows>``.  A variant
+computes the same board; only a window that does not fit a block's shared
+memory, or a grid taller than the launch allows (:func:`tile_fits`), is
+refused, with ``ValueError``, on the CPU too.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -26,6 +33,51 @@ from akka_game_of_life_tpu_torch.ops.rules import Rule, resolve_rule
 
 MAX_RADIUS = 10
 RULE_WORDS = ((2 * MAX_RADIUS + 1) ** 2 + 31) // 32  # bitset words over 0..440
+# The default library's tile (``csrc/ltl_sweep.cu``): DEFAULT_TILE_ROWS x
+# TILE_COLS output cells per block.
+DEFAULT_TILE_ROWS = 64
+TILE_COLS = 256
+# Dynamic shared memory a block may opt into on the H100 (227 KB), less the
+# kernel's static copy of the rule; and the launch's grid rows.
+SMEM_LIMIT_BYTES = 232448 - 2 * RULE_WORDS * 4
+MAX_GRID_ROWS = 65535
+
+
+def smem_bytes(tile_rows: Optional[int], radius: int) -> int:
+    """Shared memory of one block: the (tile + 2R) x (256 + 2R) window of
+    0/1 bytes and a double row buffer."""
+    rows = DEFAULT_TILE_ROWS if tile_rows is None else tile_rows
+    cols = TILE_COLS + 2 * radius
+    return (rows + 2 * radius) * cols + 2 * cols
+
+
+def tile_fits(tile_rows: Optional[int], radius: int, height: int = 1) -> bool:
+    """Does a ``tile_rows`` variant take radius ``radius`` on ``height``
+    rows?"""
+    rows = DEFAULT_TILE_ROWS if tile_rows is None else tile_rows
+    return (
+        rows >= 1
+        and smem_bytes(tile_rows, radius) <= SMEM_LIMIT_BYTES
+        and -(-height // rows) <= MAX_GRID_ROWS
+    )
+
+
+def check_tile(tile_rows: Optional[int], radius: int, height: int = 1) -> None:
+    if not tile_fits(tile_rows, radius, height):
+        raise ValueError(
+            f"tile_rows={tile_rows} does not fit the LtL kernel at R={radius} "
+            f"on {height} rows ({smem_bytes(tile_rows, radius)} B of shared "
+            f"memory, the limit is {SMEM_LIMIT_BYTES}; at most "
+            f"{MAX_GRID_ROWS} tiles down the board)"
+        )
+
+
+def tile_defines(tile_rows: Optional[int]) -> Tuple[str, ...]:
+    """The ``-D`` flags of a tile variant; the default tile is the default
+    library."""
+    if tile_rows is None or tile_rows == DEFAULT_TILE_ROWS:
+        return ()
+    return (f"-DTILE_ROWS={int(tile_rows)}",)
 
 
 def require_sweep_support(rule: Rule) -> None:
@@ -56,11 +108,12 @@ def ltl_sweep_reference(board: torch.Tensor, rule) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    """``csrc/ltl_sweep.cu`` built at first use."""
+def _library(defines: Tuple[str, ...] = ()):
+    """``csrc/ltl_sweep.cu`` built at first use; ``defines``
+    (``-DTILE_ROWS=..``) pick a tile variant."""
     from akka_game_of_life_tpu_torch.ops import _build
 
-    lib = _build.load("ltl_sweep").lib
+    lib = _build.load("ltl_sweep", defines).lib
     lib.ltl_sweep_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -73,7 +126,9 @@ def _library():
     return lib
 
 
-def _launch(board: torch.Tensor, rule: Rule) -> torch.Tensor:
+def _launch(
+    board: torch.Tensor, rule: Rule, defines: Tuple[str, ...] = ()
+) -> torch.Tensor:
     """Launch the CUDA kernel on a CUDA tensor; raises on anything else."""
     if board.device.type != "cuda":
         raise ValueError(f"the CUDA LtL step needs a CUDA tensor, got {board.device}")
@@ -91,7 +146,7 @@ def _launch(board: torch.Tensor, rule: Rule) -> torch.Tensor:
     )
     stream = torch.cuda.current_stream(board.device).cuda_stream
     with torch.cuda.device(board.device):
-        rc = _library().ltl_sweep_launch(
+        rc = _library(defines).ltl_sweep_launch(
             board.data_ptr(), out.data_ptr(), h, w, rule.radius, birth, survive,
             stream,
         )
@@ -101,30 +156,38 @@ def _launch(board: torch.Tensor, rule: Rule) -> torch.Tensor:
     return out
 
 
-def ltl_sweep(board: torch.Tensor, rule) -> torch.Tensor:
-    """One LtL generation of an (H, W) uint8 torus: the CUDA kernel for a
-    CUDA tensor, the plain version for a CPU tensor.  ``ltl_sweep.launches``
-    counts kernel launches."""
+def ltl_sweep(
+    board: torch.Tensor, rule, *, tile_rows: Optional[int] = None
+) -> torch.Tensor:
+    """One LtL generation of an (H, W) uint8 torus: the CUDA kernel (its
+    ``tile_rows`` variant) for a CUDA tensor, the plain version for a CPU
+    tensor.  ``ltl_sweep.launches`` counts kernel launches of every
+    variant."""
     rule = resolve_rule(rule)
     require_sweep_support(rule)
+    check_tile(tile_rows, rule.radius, board.shape[0])
     if board.device.type == "cpu":
         return ltl_sweep_reference(board, rule)
-    return _launch(board, rule)
+    return _launch(board, rule, tile_defines(tile_rows))
 
 
 ltl_sweep.launches = 0
 
 
-def ltl_multi_step_fn(rule, n_steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
+def ltl_multi_step_fn(
+    rule, n_steps: int, *, tile_rows: Optional[int] = None
+) -> Callable[[torch.Tensor], torch.Tensor]:
     """An ``n_steps`` advance: one launch per generation (the Pallas scan
-    of ``ltl_pallas_multi_step_fn`` as a Python loop).  Each launch writes a
-    fresh buffer; the caller's input is never overwritten."""
+    of ``ltl_pallas_multi_step_fn`` as a Python loop), through the
+    ``tile_rows`` variant.  Each launch writes a fresh buffer; the caller's
+    input is never overwritten."""
     rule = resolve_rule(rule)
     require_sweep_support(rule)
+    check_tile(tile_rows, rule.radius)
 
     def run(board: torch.Tensor) -> torch.Tensor:
         for _ in range(n_steps):
-            board = ltl_sweep(board, rule)
+            board = ltl_sweep(board, rule, tile_rows=tile_rows)
         return board
 
     return run

@@ -13,6 +13,13 @@ Mosaic's constraints (8-row halo rounding, ``H % block_rows == 0``) do not
 bind the CUDA kernel, which wraps every index modulo the torus, so any height
 and any word count work.  The kernel's one halo word per side holds at most
 :data:`MAX_STEPS_PER_SWEEP` generations per sweep.
+
+``tile_rows`` (the Pallas API's ``block_rows``) picks a compile-time variant
+of the kernel: ``None`` is the default library (:data:`DEFAULT_TILE_ROWS`
+output rows per block), another value a library built with
+``-DTILE_ROWS=<rows>``.  A variant computes the same words; only a tile whose
+two shared-memory buffers do not fit a block (:func:`tile_fits`) is refused,
+with ``ValueError``, on the CPU too.
 """
 
 from __future__ import annotations
@@ -29,6 +36,12 @@ from akka_game_of_life_tpu_torch.ops import bitpack
 from akka_game_of_life_tpu_torch.ops.rules import Rule, resolve_rule
 
 MAX_STEPS_PER_SWEEP = 31
+# Output rows per block of the default library (``csrc/packed_sweep.cu``).
+DEFAULT_TILE_ROWS = 256
+# Shared memory a block may opt into on the H100 (227 KB), and the words of
+# one tile row (30 output words and one halo word a side).
+SMEM_LIMIT_BYTES = 232448
+TILE_COLS = 32
 # Chosen on an H100 (700 W) by the tile sweep of
 # ``python -m akka_game_of_life_tpu_torch.bench`` at 65536² (PERF.md): time
 # per generation falls until k ≈ 6 and is flat (within 4%) from k = 6 to 15
@@ -57,6 +70,37 @@ def _check_steps(steps_per_sweep: int) -> int:
             f"{MAX_STEPS_PER_SWEEP}-generation halo"
         )
     return steps_per_sweep
+
+
+def smem_bytes(tile_rows: Optional[int], steps_per_sweep: int) -> int:
+    """Shared memory of one block: two buffers of (tile + 2k) rows of
+    :data:`TILE_COLS` words."""
+    rows = DEFAULT_TILE_ROWS if tile_rows is None else tile_rows
+    return 2 * (rows + 2 * steps_per_sweep) * TILE_COLS * 4
+
+
+def tile_fits(tile_rows: Optional[int], steps_per_sweep: int) -> bool:
+    """Does a ``tile_rows`` variant take a ``steps_per_sweep``-deep sweep?"""
+    return (tile_rows is None or tile_rows >= 1) and (
+        smem_bytes(tile_rows, steps_per_sweep) <= SMEM_LIMIT_BYTES
+    )
+
+
+def check_tile(tile_rows: Optional[int], steps_per_sweep: int) -> None:
+    if not tile_fits(tile_rows, steps_per_sweep):
+        raise ValueError(
+            f"tile_rows={tile_rows} at steps_per_sweep={steps_per_sweep} does "
+            f"not fit a block: {smem_bytes(tile_rows, steps_per_sweep)} B of "
+            f"shared memory, the limit is {SMEM_LIMIT_BYTES}"
+        )
+
+
+def tile_defines(tile_rows: Optional[int]) -> Tuple[str, ...]:
+    """The ``-D`` flags of a tile variant; the default tile is the default
+    library."""
+    if tile_rows is None or tile_rows == DEFAULT_TILE_ROWS:
+        return ()
+    return (f"-DTILE_ROWS={int(tile_rows)}",)
 
 
 def plan_sweeps(n_steps: int, steps_per_sweep: Optional[int] = None) -> List[int]:
@@ -134,36 +178,46 @@ def _count_launch() -> None:
         packed_sweep.launches += 1
 
 
-def packed_sweep(words: torch.Tensor, rule, steps_per_sweep: int) -> torch.Tensor:
+def packed_sweep(
+    words: torch.Tensor, rule, steps_per_sweep: int, *, tile_rows: Optional[int] = None
+) -> torch.Tensor:
     """Advance a packed (H, W/32) int32 torus by ``steps_per_sweep``
-    generations in one pass: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor.  ``packed_sweep.launches`` counts kernel
-    launches."""
+    generations in one pass: the CUDA kernel (its ``tile_rows`` variant)
+    for a CUDA tensor, the plain version for a CPU tensor.
+    ``packed_sweep.launches`` counts kernel launches of every variant."""
     rule = resolve_rule(rule)
     bitpack.require_packed_support(rule)
     _check_steps(steps_per_sweep)
+    check_tile(tile_rows, steps_per_sweep)
     if words.device.type == "cpu":
         return packed_sweep_reference(words, rule, steps_per_sweep)
-    return _launch(words, rule, steps_per_sweep)
+    return _launch(words, rule, steps_per_sweep, tile_defines(tile_rows))
 
 
 packed_sweep.launches = 0
 
 
 def packed_multi_step_fn(
-    rule, n_steps: int, *, steps_per_sweep: Optional[int] = None
+    rule,
+    n_steps: int,
+    *,
+    steps_per_sweep: Optional[int] = None,
+    tile_rows: Optional[int] = None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """An ``n_steps`` advance built from the sweeps :func:`plan_sweeps`
-    gives.  Each sweep writes a fresh buffer; the one it read is released to
-    PyTorch's caching allocator, which hands it back to the next sweep, so
-    two buffers alternate and the caller's input is never overwritten."""
+    gives, through the ``tile_rows`` variant.  Each sweep writes a fresh
+    buffer; the one it read is released to PyTorch's caching allocator,
+    which hands it back to the next sweep, so two buffers alternate and the
+    caller's input is never overwritten."""
     rule = resolve_rule(rule)
     bitpack.require_packed_support(rule)
     depths = plan_sweeps(n_steps, steps_per_sweep)
+    for k in set(depths):
+        check_tile(tile_rows, k)
 
     def run(words: torch.Tensor) -> torch.Tensor:
         for k in depths:
-            words = packed_sweep(words, rule, k)
+            words = packed_sweep(words, rule, k, tile_rows=tile_rows)
         return words
 
     return run

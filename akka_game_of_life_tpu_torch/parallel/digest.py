@@ -50,12 +50,16 @@ def _origins(mesh: GridMesh, tile_rows: int, tile_cols: int) -> List[Tuple[int, 
 def _fold(mesh: GridMesh, tile_rows: int, tile_cols: int, lanes) -> DigestFn:
     origins = _origins(mesh, tile_rows, tile_cols)
 
-    def fn(tiles: Sequence[torch.Tensor]) -> np.ndarray:
+    def parts(tiles: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Each tile's (2,) lanes on its own device, not yet merged."""
         if len(tiles) != mesh.size:
             raise ValueError(f"{len(tiles)} tiles for a mesh of {mesh.size} slots")
-        parts = [lanes(t, r0, c0) for t, (r0, c0) in zip(tiles, origins)]
-        return merge_lanes(p.cpu().numpy() for p in parts)
+        return [lanes(t, r0, c0) for t, (r0, c0) in zip(tiles, origins)]
 
+    def fn(tiles: Sequence[torch.Tensor]) -> np.ndarray:
+        return merge_lanes(p.cpu().numpy() for p in parts(tiles))
+
+    fn.parts = parts
     return fn
 
 

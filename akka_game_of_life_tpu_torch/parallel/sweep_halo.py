@@ -27,13 +27,14 @@ tile's own size (p ≤ tile rows, hw ≤ tile words) and each sweep's depth
 (at most ``packed_sweep.MAX_STEPS_PER_SWEEP``); an exchange runs the sweeps
 the single-device path would run for s generations, so a prime s costs a
 few sweeps, not s one-generation ones.  On a CUDA tile every
-sweep launches the kernel; on a CPU tile the wrappers run their plain
-versions.  Nothing moves a tile or falls back.
+sweep launches the kernel (the ``tile_rows`` variant where one is given, as
+the TPU version took ``block_rows``); on a CPU tile the wrappers run their
+plain versions.  Nothing moves a tile or falls back.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -144,10 +145,12 @@ def sharded_sweep_step_fn(
     rule,
     *,
     steps_per_call: int = 1,
+    tile_rows: Optional[int] = None,
 ) -> Callable[[Tiles], Tiles]:
     """A ``steps_per_call``-generation advance of a packed board held as
     (h, w/32) int32 word tiles, one per slot, each padded tile stepped by
-    the packed sweep (``csrc/packed_sweep.cu`` on a CUDA tile)."""
+    the packed sweep (``csrc/packed_sweep.cu``, its ``tile_rows`` variant,
+    on a CUDA tile)."""
     rule = resolve_rule(rule)
     bitpack.require_packed_support(rule)
 
@@ -158,7 +161,7 @@ def sharded_sweep_step_fn(
     return _wire_sharded_sweep(
         mesh,
         steps_per_call=steps_per_call,
-        sweep=lambda x, k: packed_sweep.packed_sweep(x, rule, k),
+        sweep=lambda x, k: packed_sweep.packed_sweep(x, rule, k, tile_rows=tile_rows),
         check=check,
     )
 
@@ -168,10 +171,12 @@ def sharded_gen_sweep_step_fn(
     rule,
     *,
     steps_per_call: int = 1,
+    tile_rows: Optional[int] = None,
 ) -> Callable[[Tiles], Tiles]:
     """The sharded plane sweep for Generations/WireWorld: (m, h, w/32)
     int32 plane tiles, one per slot, each padded tile stepped by the plane
-    sweep (``csrc/gen_sweep.cu`` on a CUDA tile).  The plane transition is
+    sweep (``csrc/gen_sweep.cu``, its ``tile_rows`` variant, on a CUDA
+    tile).  The plane transition is
     cell-local, so the alive plane's 1-cell/step front bounds every plane
     and the plan is the binary sweep's."""
     rule = resolve_rule(rule)
@@ -184,6 +189,6 @@ def sharded_gen_sweep_step_fn(
     return _wire_sharded_sweep(
         mesh,
         steps_per_call=steps_per_call,
-        sweep=lambda x, k: gen_sweep.gen_sweep(x, rule, k),
+        sweep=lambda x, k: gen_sweep.gen_sweep(x, rule, k, tile_rows=tile_rows),
         check=check,
     )

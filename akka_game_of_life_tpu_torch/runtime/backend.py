@@ -20,8 +20,9 @@ PEER_PULL under decorrelated-jitter backoff and escalates with GATHER_FAILED
 after ``max_pull_retries``.
 
 Not carried over (refused by name): the ``swar``, ``actor`` and
-``actor-native`` engines, the serve plane and federation re-homing, the
-multi-device row-sharded chunk and the profiler capture (``P.PROFILE``).
+``actor-native`` engines, the serve plane and federation re-homing, and the
+multi-device row-sharded chunk.  ``P.PROFILE`` captures a
+``torch.profiler`` window on a thread of its own.
 """
 
 from __future__ import annotations
@@ -580,8 +581,13 @@ class BackendWorker:
         self.sparse_cluster = False
         # Compile & cost observatory (cluster config, shipped in WELCOME's
         # "obs" bundle): cadence of the P.COST frames carrying this worker's
-        # program-ledger summary (0 disables the loop).
+        # program-ledger summary (0 disables the loop), and the profiler
+        # capture policy for P.PROFILE fan-outs (captures land in
+        # ``profile_dir``, which run_backend points at the flight dir).
         self.cost_interval_s = 5.0
+        self.profile_dir = "artifacts"
+        self._obs_profile: Dict[str, float] = {}
+        self._profiler = None
         # Decorrelated-jitter draws; reseeded per worker name in connect()
         # so a seeded cluster run's retry timing is reproducible per node.
         self._retry_rng = random.Random(f"retry:{name}")
@@ -767,6 +773,9 @@ class BackendWorker:
             self.cost_interval_s = float(
                 _obs.get("cost_interval_s", self.cost_interval_s)
             )
+            self._obs_profile = {
+                k: float(_obs[k]) for k in ("max_s", "min_interval_s") if k in _obs
+            }
             get_programs().configure(
                 node=welcome.get("name") or self.name,
                 enabled=bool(_obs.get("programs", True)),
@@ -1320,13 +1329,24 @@ class BackendWorker:
         elif kind == P.MIGRATE_ABORT:
             self._on_migrate_abort(tuple(msg["tile"]))
         elif kind == P.PROFILE:
-            # The profiler capture is not ported: say so in the worker's
-            # log, the only place a fanned-out request can be answered.
-            print(
-                f"{self.name or 'backend'}: profiler capture refused: "
-                f"P.PROFILE is not supported by the PyTorch port",
-                flush=True,
-            )
+            # The frontend's fan-out: capture on a daemon thread, so a
+            # multi-second window never blocks this control reader.
+            if self._profiler is None:
+                from akka_game_of_life_tpu_torch.runtime.profiling import (
+                    ProfilerCapture,
+                )
+
+                self._profiler = ProfilerCapture(
+                    self.profile_dir,
+                    node=self.name or "backend",
+                    max_seconds=float(self._obs_profile.get("max_s", 30.0)),
+                    min_interval_s=float(self._obs_profile.get("min_interval_s", 60.0)),
+                )
+            threading.Thread(
+                target=self._profile_capture,
+                args=(self._profiler, msg.get("seconds")),
+                daemon=True,
+            ).start()
         elif kind == P.DRAIN_COMPLETE:
             # The frontend released us: either every tile migrated off
             # (drained=True → rc 0) or the drain was refused (no placeable
@@ -1451,6 +1471,27 @@ class BackendWorker:
             self._publish_ring(tid, arr, epoch)
             self._report_state(tid, arr, epoch)
         self._kick()
+
+    def _profile_capture(self, prof, seconds) -> None:
+        try:
+            want = float(seconds) if seconds is not None else None
+        except (TypeError, ValueError):
+            want = None
+        result = prof.capture(want)
+        if result.get("ok"):
+            print(
+                f"profiler capture: {result.get('artifact')} "
+                f"({result.get('seconds')}s)",
+                flush=True,
+            )
+        else:
+            # A fanned capture has no HTTP response to carry the error: the
+            # worker's log is where the operator sees it.
+            print(
+                f"profiler capture failed: {result.get('error')} "
+                f"(status {result.get('status')})",
+                flush=True,
+            )
 
     def _on_crash_tile(self, tid: TileId) -> None:
         """Supervision-restart analog: the tile's in-memory state is lost;
@@ -2173,6 +2214,7 @@ def run_backend(
     node = worker.name or "backend"
     tracer.node = node  # nodeless spans attribute to this worker
     tracer.flight.configure(directory=flight_dir, node=node)
+    worker.profile_dir = flight_dir or "artifacts"
     events = EventLog(log_events, node=node, recorder=tracer.flight)
     events.emit("backend_joined", frontend=f"{host}:{port}", engine=engine)
     # Program ledger: storm alerts fire through this worker's event log and

@@ -383,3 +383,98 @@ class CheckpointStore:
 
     def close(self) -> None:
         """Saves are synchronous; nothing is held open."""
+
+
+_LAYOUTS = {0: "dense-uint8", 1: "packbits", 2: "packed32", 3: "gen-planes"}
+
+
+def describe_store(directory: str, validate: bool = False):
+    """Inspect a checkpoint directory without a Simulation (the
+    ``checkpoints`` subcommand).
+
+    Yields one dict per durable epoch — epoch, store, layout, rule, shape,
+    bytes on disk (tile epochs add grid and tile counts), and the recorded
+    digest.  With ``validate=True`` each epoch is also loaded in full and
+    ``ok``/``error`` reported; a recorded digest is re-derived from the
+    payload on disk (``digest_ok``).  The JAX package's lines, for a
+    directory either package wrote; an orbax directory yields nothing (the
+    port's store is npz).
+    """
+    from akka_game_of_life_tpu_torch.ops import digest as odigest
+
+    if not Path(directory).is_dir():
+        return
+    store = CheckpointStore(directory)
+    for epoch, path in store._epochs():
+        info = {"epoch": epoch, "store": "npz"}
+        try:
+            if path.is_dir():
+                meta = store.tile_meta(epoch)
+                tiles = sorted(path.glob("tile_*.npz"))
+                info.update(
+                    layout="tiles",
+                    rule=meta.get("rule"),
+                    shape=meta.get("shape"),
+                    grid=meta.get("grid"),
+                    tiles=len(tiles),
+                    bytes=sum(t.stat().st_size for t in tiles),
+                )
+            else:
+                with np.load(path) as z:
+                    meta = json.loads(bytes(z["meta"].tobytes()).decode())
+                    code = int(z["packed"])
+                    info.update(
+                        layout=_LAYOUTS.get(code, f"format-{code}"),
+                        rule=meta.get("rule"),
+                        shape=[int(v) for v in z["shape"]],
+                        bytes=path.stat().st_size,
+                    )
+            if meta.get("digest"):
+                info["digest"] = meta["digest"]
+        except Exception as e:  # noqa: BLE001 — unreadable metadata is a finding
+            info.update(error=f"{type(e).__name__}: {e}")
+            if validate:
+                info["ok"] = False
+            yield info
+            continue
+        if validate:
+            try:
+                recorded = info.get("digest")
+                computed = None
+                if path.is_dir():
+                    # Tile by tile, with each tile's global origin: the
+                    # board is never assembled.
+                    computed = odigest.format_digest(store.tile_digest(epoch))
+                    info["ok"] = True
+                else:
+                    ck = store.load(epoch, keep_packed=True)
+                    if ck.packed32 is not None:
+                        shape = info.get("shape")
+                        h, words = ck.packed32.shape[-2], ck.packed32.shape[-1]
+                        info["ok"] = shape is None or list(shape) == [h, words * 32]
+                    else:
+                        info["ok"] = ck.board is not None and list(
+                            ck.board.shape
+                        ) == list(info.get("shape") or ck.board.shape)
+                    if recorded is not None and info["ok"]:
+                        if ck.packed32 is not None:
+                            w = int(info["shape"][1])
+                            lanes = (
+                                odigest.digest_packed_np(ck.packed32, w)
+                                if ck.packed32.ndim == 2
+                                else odigest.digest_planes_np(ck.packed32, w)
+                            )
+                        else:
+                            lanes = odigest.digest_dense_np(ck.board)
+                        computed = odigest.format_digest(odigest.value(lanes))
+                if recorded is not None and computed is not None:
+                    info["digest_ok"] = computed == recorded
+                    if not info["digest_ok"]:
+                        info["ok"] = False
+                        info["error"] = (
+                            f"digest mismatch: stored {recorded}, "
+                            f"computed {computed}"
+                        )
+            except Exception as e:  # noqa: BLE001 — reported per epoch
+                info.update(ok=False, error=f"{type(e).__name__}: {e}")
+        yield info

@@ -2,18 +2,28 @@
 
 Counterpart of ``akka_game_of_life_tpu/runtime/config.py`` restricted to the
 fields the PyTorch port honours: the standalone run's knobs (the device
-mesh of one process included: ``mesh_shape`` and ``halo_width``) and the
-cluster's (the ``frontend`` and ``backend`` roles, the in-process harness),
-with the JAX package's names, defaults and checks.  ``load_config`` reads the
-same TOML or JSON files (``examples/headline-65536.toml`` loads unchanged) and
-accepts the same duration spellings ("5s", "3000ms").  A key the port does
-not support — the multi-process mesh (``distributed``,
+mesh of one process, the kernels' tile, pacing, fault injection, deferred
+observation, the async checkpoint writer and the observability surface) and
+the cluster's (the ``frontend`` and ``backend`` roles, the in-process
+harness), with the JAX package's names, defaults and checks.  ``load_config``
+reads the same TOML or JSON files (``examples/headline-65536.toml`` loads
+unchanged) and accepts the same duration spellings ("5s", "3000ms").  A key
+the port does not support — the multi-process mesh (``distributed``,
 ``coordinator_address``, ``num_processes``, ``process_id``),
-``pallas_block_rows``, ``obs_defer``, ``sparse_kernel``, a ``serve_*``,
-federation ``frontend_*`` or ``ff_*`` knob, ``backend`` (the per-cell actor
-engines), or any other — raises a ``ValueError`` that names it, never a
-silent default.  ``checkpoint_format = "orbax"`` is refused by name too: the
-port's store is npz.
+``sparse_kernel``, a ``serve_*``, federation ``frontend_*`` or ``ff_*`` knob,
+``backend`` (the per-cell actor engines), or any other — raises a
+``ValueError`` that names it, never a silent default.
+``checkpoint_format = "orbax"`` and a non-zero ``pallas_vmem_limit_mb`` are
+refused by name too: the port's store is npz, and the card has no Mosaic
+VMEM budget (each launcher opts into the shared memory its tile needs).
+
+One default differs from the JAX package on purpose: ``pallas_block_rows``
+is ``None``, "the kernel's own tile" (``ops/*_sweep.py:DEFAULT_TILE_ROWS``),
+where the JAX package's 64 is a TPU VMEM choice.  A file that sets the key
+means the same in both packages: the rows of a kernel block under
+``kernel = "pallas"``.  The CUDA kernels wrap every index modulo the torus,
+so any positive row count is taken (no multiple-of-8 rule); a tile too large
+for a block's shared memory raises when the run is built.
 """
 
 from __future__ import annotations
@@ -153,6 +163,12 @@ class SimulationConfig:
     pattern_offset: Tuple[int, int] = (2, 2)
     max_epochs: Optional[int] = None
     kernel: str = "auto"
+    # Output rows per block of the CUDA kernels under kernel="pallas" (a
+    # compile-time tile variant, ``tune``'s answer); None = the kernel's own
+    # tile, which kernel="auto" always uses.
+    pallas_block_rows: Optional[int] = None
+    # Accepted at 0 only (the JAX package's Mosaic VMEM budget override).
+    pallas_vmem_limit_mb: int = 0
     steps_per_call: int = 1
     # Steps per halo exchange of the sharded dense and plain packed paths
     # (the sharded sweeps plan their own exchange depth).
@@ -173,11 +189,28 @@ class SimulationConfig:
     # The 64-bit board digest on every metrics line; in the cluster, the
     # workers' per-tile digest lanes merged by the frontend.
     obs_digest: bool = False
+    # Cadence observations dispatched on the device and fetched one chunk
+    # later, while the next chunk runs (lines one chunk late, values equal).
+    obs_defer: bool = False
+    # npz saves on one writer thread, at most one in flight; False = every
+    # save durable when checkpoint() returns.
+    checkpoint_async: bool = True
+    tick_s: float = 0.0  # wall-clock pacing per chunk; 0 = free-running
+    # -- observability (every role) ------------------------------------------
+    metrics_file: Optional[str] = None
+    metrics_port: int = 0
+    log_events: Optional[str] = None
+    trace_file: Optional[str] = None
+    flight_dir: str = "artifacts"
+    obs_programs: bool = True
+    # POST /profile guard rails: the longest capture, the least gap between
+    # two (429 inside it).
+    obs_profile_max_s: float = 30.0
+    obs_profile_min_interval_s: float = 60.0
 
     # -- cluster: timing and membership ------------------------------------
     wait_for_backends_s: float = 5.0
     start_delay_s: float = 1.0
-    tick_s: float = 0.0  # 0 = free-running
     role: str = "standalone"  # standalone | frontend | backend
     host: str = "127.0.0.1"
     port: int = 2551
@@ -208,12 +241,6 @@ class SimulationConfig:
     # Quiescence tier: workers skip chunks whose (state, halo) repeats.
     sparse_cluster: bool = False
     # -- cluster: observability --------------------------------------------
-    metrics_file: Optional[str] = None
-    metrics_port: int = 0
-    log_events: Optional[str] = None
-    trace_file: Optional[str] = None
-    flight_dir: str = "artifacts"
-    obs_programs: bool = True
     obs_cost_interval_s: float = 5.0
 
     fault_injection: FaultInjectionConfig = dataclasses.field(
@@ -234,6 +261,22 @@ class SimulationConfig:
             raise ValueError(
                 f"checkpoint_format={self.checkpoint_format!r} is not "
                 f"supported by the PyTorch port (its store is npz)"
+            )
+        if self.pallas_block_rows is not None and self.pallas_block_rows < 1:
+            raise ValueError(
+                f"pallas_block_rows={self.pallas_block_rows} must be a "
+                f"positive row count (or unset: the kernel's own tile)"
+            )
+        if self.pallas_vmem_limit_mb < 0:
+            raise ValueError(
+                f"pallas_vmem_limit_mb={self.pallas_vmem_limit_mb} must be >= 0"
+            )
+        if self.pallas_vmem_limit_mb:
+            raise ValueError(
+                f"pallas_vmem_limit_mb={self.pallas_vmem_limit_mb} is not "
+                f"supported by the PyTorch port: there is no Mosaic VMEM "
+                f"budget on the card (each launcher opts into the shared "
+                f"memory its tile needs); leave it 0"
             )
         if self.steps_per_call < 1:
             raise ValueError(f"steps_per_call={self.steps_per_call} must be >= 1")
@@ -272,6 +315,18 @@ class SimulationConfig:
             raise ValueError(
                 f"obs_cost_interval_s={self.obs_cost_interval_s} must be > 0"
             )
+        if self.obs_profile_max_s <= 0:
+            raise ValueError(
+                f"obs_profile_max_s={self.obs_profile_max_s} must be > 0"
+            )
+        if self.obs_profile_min_interval_s < 0:
+            raise ValueError(
+                f"obs_profile_min_interval_s="
+                f"{self.obs_profile_min_interval_s} must be >= 0 (0 = no "
+                f"rate limit)"
+            )
+        if self.tick_s < 0:
+            raise ValueError(f"tick_s={self.tick_s} must be >= 0")
         if self.retry_s <= 0:
             raise ValueError(f"retry_s={self.retry_s} must be > 0")
         if self.retry_max_s < self.retry_s:
@@ -341,11 +396,14 @@ CLUSTER_FIELDS = tuple(
     for f in dataclasses.fields(SimulationConfig)
     if f.name not in {
         "height", "width", "rule", "density", "seed", "pattern",
-        "pattern_offset", "max_epochs", "kernel", "steps_per_call",
-        "halo_width", "mesh_shape",
+        "pattern_offset", "max_epochs", "kernel", "pallas_block_rows",
+        "pallas_vmem_limit_mb", "steps_per_call", "halo_width", "mesh_shape",
         "checkpoint_dir", "checkpoint_every", "checkpoint_format",
-        "render_every", "render_max_cells", "probe_window", "log_file",
-        "metrics_every", "obs_digest", "role",
+        "checkpoint_async", "render_every", "render_max_cells",
+        "probe_window", "log_file", "metrics_every", "obs_digest",
+        "obs_defer", "tick_s", "metrics_file", "metrics_port", "log_events",
+        "trace_file", "flight_dir", "obs_programs", "obs_profile_max_s",
+        "obs_profile_min_interval_s", "fault_injection", "role",
     }
 )
 
@@ -363,7 +421,8 @@ _DURATION_FIELDS = {
     "wait_for_backends_s", "start_delay_s", "tick_s", "heartbeat_s",
     "failure_timeout_s", "restart_window_s", "stuck_timeout_s", "first_after_s",
     "every_s", "retry_s", "retry_max_s", "rebalance_interval_s",
-    "rebalance_deadline_s", "obs_cost_interval_s", "breaker_cooldown_s",
+    "rebalance_deadline_s", "obs_cost_interval_s", "obs_profile_max_s",
+    "obs_profile_min_interval_s", "breaker_cooldown_s",
     "send_deadline_s", "delay_s", "partition_after_s", "partition_every_s",
     "partition_heal_s",
 }

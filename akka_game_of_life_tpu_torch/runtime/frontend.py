@@ -14,8 +14,9 @@ a wall-clock or epoch-indexed schedule.  Live tile migration and graceful
 drain (the elastic plane) are carried over.
 
 Not carried over: the serve plane, frontend federation and the SLO tracker
-(their config keys are refused), and the profiler capture — ``POST
-/profile`` answers 501 and names it.
+(their config keys are refused).  ``POST /profile`` captures a
+``torch.profiler`` window (``runtime/profiling.py``) and fans it out to the
+workers.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from akka_game_of_life_tpu_torch.runtime.netchaos import (
     NetworkChaos,
     wrap_channel,
 )
+from akka_game_of_life_tpu_torch.runtime.profiling import ProfilerCapture
 from akka_game_of_life_tpu_torch.runtime.rebalance import Migration, Rebalancer
 from akka_game_of_life_tpu_torch.runtime.render import BoardObserver
 from akka_game_of_life_tpu_torch.runtime.simulation import initial_board
@@ -241,6 +243,14 @@ class Frontend:
             metrics=self.metrics,
             enabled=config.obs_programs,
         )
+        # POST /profile: one rate-limited capture at a time, fanned out to
+        # the workers (each lands its own beside its crash dumps).
+        self._profiler = ProfilerCapture(
+            config.flight_dir or "artifacts",
+            node="frontend",
+            max_seconds=config.obs_profile_max_s,
+            min_interval_s=config.obs_profile_min_interval_s,
+        )
         # cluster.run is the whole simulation; epoch is one epoch-target
         # announcement (the whole run in free-running mode, one tick in
         # paced mode) — the span every backend step links back to.
@@ -423,8 +433,8 @@ class Frontend:
 
     def start(self) -> None:
         if self.config.metrics_port:
-            # Observatory surface: cluster-merged /programs + /cost, and a
-            # POST /profile that refuses by name.
+            # Observatory surface: cluster-merged /programs + /cost, and
+            # POST /profile.
             routes = dict(
                 program_routes(
                     registry=self.programs, profile=self._cluster_profile
@@ -474,14 +484,21 @@ class Frontend:
         return doc
 
     def _cluster_profile(self, seconds: Optional[float]) -> dict:
-        """POST /profile: the profiler capture is not ported; the answer
-        names it instead of pretending to capture."""
-        return {
-            "ok": False,
-            "status": 501,
-            "error": "POST /profile is not supported by the PyTorch port "
-            "(no profiler capture)",
-        }
+        """POST /profile: capture locally first (the rate limiter lives
+        here, one knob for the whole cluster), then fan the same window to
+        every live worker, fire and forget."""
+        result = self._profiler.capture(seconds)
+        if not result.get("ok"):
+            return result
+        fanned = []
+        for m in self.membership.alive_members():
+            try:
+                m.channel.send({"type": P.PROFILE, "seconds": result["seconds"]})
+                fanned.append(m.name)
+            except OSError:
+                pass
+        result["members"] = sorted(fanned)
+        return result
 
     def _io_loop(self) -> None:
         while True:
@@ -995,6 +1012,8 @@ class Frontend:
                     "obs": {
                         "programs": self.config.obs_programs,
                         "cost_interval_s": self.config.obs_cost_interval_s,
+                        "max_s": self.config.obs_profile_max_s,
+                        "min_interval_s": self.config.obs_profile_min_interval_s,
                     },
                 }
             )

@@ -63,11 +63,35 @@ raises.  Population, samples and probe windows are cut from the tiles that
 hold them, the digest folds per-tile lanes (``parallel/digest.py``), and a
 checkpoint gathers the layout to the host and saves what a single-device
 run saves, so any run resumes any other, meshed or not, in either package.
+
+**The tile.** Under ``kernel=pallas`` the CUDA kernels run the
+``pallas_block_rows`` variant of their tile (``tune``'s answer, one library
+per tile); ``kernel=auto`` and an unset ``pallas_block_rows`` run the
+kernels' own tiles.  A tile too large for a block's shared memory raises when
+the run is built.
+
+**The run's machinery** is the JAX package's: the metrics registry, the span
+tracer and its flight recorder, the JSONL event log and the metrics-file
+dump (``registry=`` / ``tracer=`` for embedders); ``tick_s`` pacing; fault
+injection with deterministic replay from the newest checkpoint
+(``crash_log``); deferred observation (``obs_defer``: each cadence record's
+device results are copied into pinned host buffers without blocking and read
+one chunk later, after the next chunk's launches are queued); and
+checkpoints written on one writer thread, at most one in flight
+(``checkpoint_async``; ``flush()`` makes them durable, a write error surfaces
+at the next wait).  A single device hands the writer the board tensor, which
+no later chunk writes (every stepper returns a fresh tensor), so the copy to
+the host runs on the writer thread too; a mesh gathers its tiles on the host
+first.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import logging
+import signal
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -75,6 +99,13 @@ import numpy as np
 import torch
 
 from akka_game_of_life_tpu_torch.models.registry import get_model
+from akka_game_of_life_tpu_torch.obs import (
+    EventLog,
+    MetricsDumper,
+    get_registry,
+    get_tracer,
+)
+from akka_game_of_life_tpu_torch.obs.programs import get_programs
 from akka_game_of_life_tpu_torch.ops import (
     bitpack,
     bitpack_gen,
@@ -95,6 +126,8 @@ from akka_game_of_life_tpu_torch.parallel.sweep_halo import (
     sharded_gen_sweep_step_fn,
     sharded_sweep_step_fn,
 )
+from akka_game_of_life_tpu_torch.runtime import profiling
+from akka_game_of_life_tpu_torch.runtime.chaos import CrashInjector
 from akka_game_of_life_tpu_torch.runtime.checkpoint import CheckpointStore
 from akka_game_of_life_tpu_torch.runtime.config import (
     SimulationConfig,
@@ -200,6 +233,81 @@ def _crosses(prev_epoch: int, epoch: int, every: int) -> bool:
     return every > 0 and (epoch // every) > (prev_epoch // every)
 
 
+@contextlib.contextmanager
+def _shield_sigint():
+    """Defer ^C / SIGTERM across a critical section so (board, epoch) never
+    tears: an interrupt between the two updates would leave a stepped board
+    labelled with the previous epoch, and the interrupt checkpoint would
+    save that.  The signals are recorded and re-raised as
+    ``KeyboardInterrupt`` at the section's end.  No-op off the main thread;
+    C-installed handlers are left alone."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+    received = []
+    shielded = []
+    try:
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            if signal.getsignal(sig) is None:
+                continue
+            shielded.append(
+                (sig, signal.signal(sig, lambda s, f: received.append(s)))
+            )
+    except BaseException as e:
+        for sig, old_h in shielded:
+            signal.signal(sig, old_h)
+        if isinstance(e, ValueError):  # no signal support in this context
+            yield
+            return
+        raise
+    try:
+        yield
+    finally:
+        for sig, old_h in shielded:
+            signal.signal(sig, old_h)
+    if received:
+        raise KeyboardInterrupt
+
+
+def _tree_map(fn: Callable, obj):
+    """``fn`` on every tensor of nested lists/dicts (None kept)."""
+    if isinstance(obj, dict):
+        return {k: _tree_map(fn, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_tree_map(fn, v) for v in obj]
+    return obj if obj is None else fn(obj)
+
+
+class _HostFetch:
+    """Copies of device results into host memory, started without blocking
+    (pinned buffers, one CUDA event per device) and read later; CPU
+    tensors pass through."""
+
+    def __init__(self, tree) -> None:
+        devices = set()
+
+        def start(t: torch.Tensor) -> torch.Tensor:
+            if t.device.type != "cuda":
+                return t
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            devices.add(t.device)
+            return host
+
+        self._tree = _tree_map(start, tree)
+        self._events = []
+        for dev in devices:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+            self._events.append(event)
+
+    def result(self):
+        """The copies as numpy arrays, once every copy has landed."""
+        for event in self._events:
+            event.synchronize()
+        return _tree_map(lambda t: t.numpy(), self._tree)
+
+
 class Simulation:
     """One simulation run on one device or a mesh of them, resumable from
     checkpoints.  ``board`` is a tensor on one device, a list of tiles (one
@@ -210,6 +318,8 @@ class Simulation:
         config: SimulationConfig,
         observer: Optional[BoardObserver] = None,
         device=None,
+        registry=None,
+        tracer=None,
     ) -> None:
         cluster_only = cluster_keys_set(config)
         if cluster_only:
@@ -231,6 +341,14 @@ class Simulation:
             self.layout = "dense"
         else:
             self.layout = "words" if self.rule.is_binary else "planes"
+        # kernel=pallas runs the configured tile variant; auto the kernels'
+        # own tiles (MEASURED_TILE_ROWS).
+        self.tile_rows = (
+            config.pallas_block_rows
+            if config.kernel == "pallas" and self.kernel.endswith("sweep")
+            else None
+        )
+        self._check_tile()
         self.mesh: Optional[pmesh.GridMesh] = None
         if self._use_mesh:
             if self.layout == "dense":
@@ -243,54 +361,68 @@ class Simulation:
                 self.mesh = pmesh.make_grid_mesh(self._packed_mesh_shape(), self.devices)
                 if self.kernel == "bitpack":
                     self._validate_packed_mesh()
+        # Observability, once the run is known to be valid: the process-wide
+        # registry and tracer unless the embedder passes its own; events
+        # append to the JSONL log; the flight ring dumps on injected crashes.
+        self.metrics = registry if registry is not None else get_registry()
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self._m_obs_seconds = self.metrics.histogram("gol_obs_seconds")
+        self._m_digest_checks = self.metrics.counter("gol_digest_checks_total")
+        self._m_digest_seconds = self.metrics.histogram("gol_digest_seconds")
+        self._node = f"{config.role}:0"
+        if tracer is None:
+            # Nodeless spans (checkpoint IO on the writer thread) carry
+            # this run's label.
+            self.tracer.node = self._node
+        self.tracer.flight.configure(directory=config.flight_dir, node=self._node)
+        self.events = EventLog(
+            config.log_events, node=self._node, recorder=self.tracer.flight
+        )
+        self._metrics_dumper = (
+            MetricsDumper(self.metrics, config.metrics_file)
+            if config.metrics_file
+            else None
+        )
         self.device = self.devices[0]
         self.observer = observer or BoardObserver(
             render_every=config.render_every,
             render_max_cells=config.render_max_cells,
             metrics_every=config.metrics_every,
             log_file=config.log_file,
+            registry=self.metrics,
         )
         self.store = (
-            CheckpointStore(config.checkpoint_dir)
+            CheckpointStore(
+                config.checkpoint_dir, registry=self.metrics, tracer=self.tracer
+            )
             if config.checkpoint_dir is not None
             else None
         )
+        # Async saves: at most one in flight on one writer thread; the
+        # pending entry is (future, epoch), drained by _ckpt_wait().
+        self._ckpt_executor: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        self._ckpt_pending = None
+        if config.fault_injection.enabled and self.store is None:
+            raise ValueError(
+                "fault injection requires checkpoint_dir: a crash with no "
+                "checkpoint to recover from would only restart from epoch 0"
+            )
+        self.injector = (
+            CrashInjector(
+                config.fault_injection,
+                registry=self.metrics,
+                flight=self.tracer.flight,
+            )
+            if config.fault_injection.enabled
+            else None
+        )
+        self.crash_log: List[int] = []  # epochs at which injected crashes hit
+        # obs_defer: cadence records dispatched, not yet read.
+        self._pending_obs: List[dict] = []
         self._steppers: Dict[int, Callable] = {}
         self._digest = None
         self.epoch = 0
-        h, w = config.shape
-        expect = {
-            "words": (h, w // bitpack.LANE_BITS),
-            "planes": (bitpack_gen.n_planes(self.rule.states), h, w // bitpack.LANE_BITS),
-            "dense": (h, w),
-        }[self.layout]
-        if self.store is not None and self.store.latest_epoch() is not None:
-            ckpt = self.store.load(keep_packed=self.layout != "dense")
-            if ckpt.packed32 is not None:
-                payload = ckpt.packed32
-            else:
-                if ckpt.board.shape != config.shape:
-                    raise ValueError(
-                        f"checkpoint shape {ckpt.board.shape} != config {config.shape}"
-                    )
-                payload = self._pack(ckpt.board)
-            if payload.shape != expect:
-                raise ValueError(
-                    f"checkpoint {self.layout} shape {payload.shape} != config {expect}"
-                )
-            self.epoch = ckpt.epoch
-        elif self.layout == "words":
-            payload = initial_words(config)
-        elif self.layout == "planes":
-            payload = initial_planes(config, self.rule.states)
-        else:
-            payload = initial_board(config)
-        if self.mesh is not None:
-            self.board = pmesh.shard_board(payload, self.mesh)
-        elif self.layout == "dense":
-            self.board = torch.from_numpy(np.ascontiguousarray(payload, np.uint8)).to(self.device)
-        else:
-            self.board = bitpack.words_from_numpy(payload, self.device)
+        self.board = self._place(self._start_payload())
 
     def _resolve_kernel(self) -> str:
         """The stepper for this rule and width (module docstring tables):
@@ -346,6 +478,22 @@ class Simulation:
             self._use_mesh = False
         return "sweep" if rule.is_binary else "gen_sweep"
 
+    def _check_tile(self) -> None:
+        """Refuse a ``pallas_block_rows`` tile the kernel cannot take (its
+        shared memory at the deepest sweep a chunk plans), before any board
+        is placed."""
+        if self.tile_rows is None:
+            return
+        cfg = self.config
+        k = min(cfg.steps_per_call, packed_sweep.DEFAULT_STEPS_PER_SWEEP)
+        if self.kernel == "sweep":
+            packed_sweep.check_tile(self.tile_rows, k)
+        elif self.kernel == "gen_sweep":
+            m = bitpack_gen.n_planes(self.rule.states)
+            gen_sweep.check_tile(m, self.tile_rows, k)
+        else:
+            ltl_sweep.check_tile(self.tile_rows, self.rule.radius, cfg.height)
+
     def _packed_mesh_shape(self) -> Tuple[int, int]:
         return self.config.mesh_shape or (len(self.devices), 1)
 
@@ -386,6 +534,51 @@ class Simulation:
             return bitpack_gen.pack_gen_np(board, self.rule.states)
         return board
 
+    def _start_payload(self) -> np.ndarray:
+        """The host board in this run's layout: the newest checkpoint's
+        (setting ``epoch``), else the configured start."""
+        cfg = self.config
+        if self.store is not None and self.store.latest_epoch() is not None:
+            return self._restore()
+        if self.layout == "words":
+            return initial_words(cfg)
+        if self.layout == "planes":
+            return initial_planes(cfg, self.rule.states)
+        return initial_board(cfg)
+
+    def _restore(self) -> np.ndarray:
+        """The newest checkpoint in this run's layout; sets ``epoch``."""
+        cfg = self.config
+        h, w = cfg.shape
+        expect = {
+            "words": (h, w // bitpack.LANE_BITS),
+            "planes": (bitpack_gen.n_planes(self.rule.states), h, w // bitpack.LANE_BITS),
+            "dense": (h, w),
+        }[self.layout]
+        ckpt = self.store.load(keep_packed=self.layout != "dense")
+        if ckpt.packed32 is not None:
+            payload = ckpt.packed32
+        else:
+            if ckpt.board.shape != cfg.shape:
+                raise ValueError(
+                    f"checkpoint shape {ckpt.board.shape} != config {cfg.shape}"
+                )
+            payload = self._pack(ckpt.board)
+        if payload.shape != expect:
+            raise ValueError(
+                f"checkpoint {self.layout} shape {payload.shape} != config {expect}"
+            )
+        self.epoch = ckpt.epoch
+        return payload
+
+    def _place(self, payload: np.ndarray):
+        """A host payload on the run's device(s)."""
+        if self.mesh is not None:
+            return pmesh.shard_board(payload, self.mesh)
+        if self.layout == "dense":
+            return torch.from_numpy(np.ascontiguousarray(payload, np.uint8)).to(self.device)
+        return bitpack.words_from_numpy(payload, self.device)
+
     def _stepper(self, k: int) -> Callable:
         if k not in self._steppers:
             self._steppers[k] = (
@@ -394,13 +587,13 @@ class Simulation:
         return self._steppers[k]
 
     def _single_stepper(self, k: int) -> Callable:
-        rule = self.rule
+        rule, tile = self.rule, self.tile_rows
         if self.kernel == "sweep":
-            return packed_sweep.packed_multi_step_fn(rule, k)
+            return packed_sweep.packed_multi_step_fn(rule, k, tile_rows=tile)
         if self.kernel == "gen_sweep":
-            return gen_sweep.gen_multi_step_fn(rule, k)
+            return gen_sweep.gen_multi_step_fn(rule, k, tile_rows=tile)
         if self.kernel == "ltl_sweep":
-            return ltl_sweep.ltl_multi_step_fn(rule, k)
+            return ltl_sweep.ltl_multi_step_fn(rule, k, tile_rows=tile)
         if self.kernel == "bitpack" and self.layout == "words":
             return bitpack.packed_multi_step_fn(rule, k)
         if self.kernel == "bitpack":
@@ -408,11 +601,11 @@ class Simulation:
         return get_model(rule).run(k)
 
     def _mesh_stepper(self, k: int) -> Callable:
-        mesh, rule = self.mesh, self.rule
+        mesh, rule, tile = self.mesh, self.rule, self.tile_rows
         if self.kernel == "sweep":
-            return sharded_sweep_step_fn(mesh, rule, steps_per_call=k)
+            return sharded_sweep_step_fn(mesh, rule, steps_per_call=k, tile_rows=tile)
         if self.kernel == "gen_sweep":
-            return sharded_gen_sweep_step_fn(mesh, rule, steps_per_call=k)
+            return sharded_gen_sweep_step_fn(mesh, rule, steps_per_call=k, tile_rows=tile)
         if self.kernel == "bitpack" and self.layout == "words":
             return sharded_packed2d_step_fn(
                 mesh, rule, steps_per_call=k, halo_rows=self._halo_for(k)
@@ -429,23 +622,74 @@ class Simulation:
 
     def advance(self, epochs: Optional[int] = None) -> int:
         """Advance by exactly ``epochs`` generations (default:
-        config.max_epochs), in chunks of ``steps_per_call``; observation and
-        checkpoints happen between chunks."""
+        config.max_epochs), in chunks of ``steps_per_call``; pacing, fault
+        injection, observation and checkpoints happen between chunks."""
         cfg = self.config
         target = self.epoch + (epochs if epochs is not None else (cfg.max_epochs or 0))
         self.observer.start_clock(self.epoch)
-        while self.epoch < target:
-            chunk = min(cfg.steps_per_call, target - self.epoch)
-            prev = self.epoch
-            self.board = self._stepper(chunk)(self.board)
-            self.epoch += chunk
-            render = _crosses(prev, self.epoch, cfg.render_every)
-            if render or _crosses(prev, self.epoch, cfg.metrics_every):
-                self._observe(render=render)
-            if self.store is not None and _crosses(
-                prev, self.epoch, cfg.checkpoint_every
-            ):
-                self.checkpoint()
+        epochs_c = self.metrics.counter("gol_epochs_advanced_total")
+        chunks_c = self.metrics.counter("gol_chunks_total")
+        step_h = self.metrics.histogram("gol_step_seconds")
+        epoch_g = self.metrics.gauge("gol_epoch")
+        next_tick = time.monotonic()
+        advance_span = self.tracer.span(
+            "sim.advance", node=self._node,
+            from_epoch=self.epoch, epochs=target - self.epoch,
+        )
+        advance_span.__enter__()
+        try:
+            while self.epoch < target:
+                if cfg.tick_s > 0:
+                    now = time.monotonic()
+                    if now < next_tick:
+                        time.sleep(next_tick - now)
+                    next_tick = max(next_tick + cfg.tick_s, now)
+                if self.injector is not None and (
+                    self.injector.should_crash()
+                    or self.injector.should_crash_at_epoch(self.epoch)
+                ):
+                    self._crash_and_recover()
+                chunk = min(cfg.steps_per_call, target - self.epoch)
+                prev = self.epoch
+                chunk_t0 = time.perf_counter()
+                with self.tracer.span(
+                    "sim.chunk", node=self._node, epoch=prev, chunk=chunk
+                ):
+                    with profiling.annotate_epochs("advance_chunk", self.epoch):
+                        new_board = self._stepper(chunk)(self.board)
+                    with _shield_sigint():
+                        # Atomic with respect to ^C: an interrupt
+                        # checkpoint never sees a stepped board labelled
+                        # with the previous epoch.
+                        self.board = new_board
+                        self.epoch += chunk
+                step_h.observe(time.perf_counter() - chunk_t0)
+                epochs_c.inc(chunk)
+                chunks_c.inc()
+                epoch_g.set(self.epoch)
+                # Deferred records of earlier cadence points are read now,
+                # with this chunk's launches already queued on the card.
+                self._obs_resolve()
+                render = _crosses(prev, self.epoch, cfg.render_every)
+                if render or _crosses(prev, self.epoch, cfg.metrics_every):
+                    self._observe(render=render)
+                if _crosses(prev, self.epoch, cfg.metrics_every):
+                    self._dump_metrics()
+                if self.store is not None and _crosses(
+                    prev, self.epoch, cfg.checkpoint_every
+                ):
+                    self.checkpoint()
+        except BaseException:
+            # Best effort on the way out: a failed read must not replace the
+            # real exception (or swallow a KeyboardInterrupt on its way to
+            # the interrupt checkpoint).
+            with contextlib.suppress(Exception):
+                self._obs_resolve()
+            raise
+        finally:
+            advance_span.set(reached=self.epoch).__exit__(None, None, None)
+        # A cadence point on the last chunk has no next chunk to ride under.
+        self._obs_resolve()
         return self.epoch
 
     def _sync(self) -> None:
@@ -453,6 +697,15 @@ class Simulation:
         for dev in devices:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+
+    def _dump_metrics(self) -> None:
+        """Refresh the ``--metrics-file`` exposition (atomic, failure
+        contained), with the device-memory gauges."""
+        if self._metrics_dumper is None:
+            return
+        with contextlib.suppress(Exception):
+            get_programs().refresh_device_gauges()
+        self._metrics_dumper.dump()
 
     def _probe_due(self, render: bool) -> bool:
         cfg = self.config
@@ -468,10 +721,10 @@ class Simulation:
     def _tiles(self) -> List[torch.Tensor]:
         return [self.board] if self.mesh is None else list(self.board)
 
-    def _cells(self, ys: np.ndarray, xs: np.ndarray) -> np.ndarray:
-        """Host uint8 cells at the global rows ``ys`` × cell columns ``xs``
-        (sorted int arrays), cut on the device from the tiles that hold
-        them: O(len(ys)·len(xs)) fetched."""
+    def _cells_request(self, ys: np.ndarray, xs: np.ndarray) -> List[List[torch.Tensor]]:
+        """The cells at the global rows ``ys`` × cell columns ``xs`` (sorted
+        int arrays), cut on the device from the tiles that hold them, as
+        bands of per-tile parts: O(len(ys)·len(xs)) to fetch."""
         rows, cols = self.mesh.shape if self.mesh is not None else (1, 1)
         th, tw = self.config.height // rows, self.config.width // cols
         tiles = self._tiles()
@@ -485,19 +738,27 @@ class Simulation:
                 lx = xs[(xs >= c * tw) & (xs < (c + 1) * tw)] - c * tw
                 if len(lx):
                     parts.append(self._tile_cells(tiles[r * cols + c], ly, lx))
-            bands.append(np.concatenate(parts, axis=1))
-        return np.concatenate(bands, axis=0)
+            bands.append(parts)
+        return bands
 
-    def _tile_cells(self, tile: torch.Tensor, ly: np.ndarray, lx: np.ndarray) -> np.ndarray:
+    @staticmethod
+    def _join(bands) -> np.ndarray:
+        return np.concatenate([np.concatenate(p, axis=1) for p in bands], axis=0)
+
+    def _cells(self, ys: np.ndarray, xs: np.ndarray) -> np.ndarray:
+        """Host uint8 cells at the global rows ``ys`` × columns ``xs``."""
+        return self._join(_HostFetch(self._cells_request(ys, xs)).result())
+
+    def _tile_cells(self, tile: torch.Tensor, ly: np.ndarray, lx: np.ndarray) -> torch.Tensor:
         rows = torch.from_numpy(ly).to(tile.device)
         if self.layout == "dense":
-            return tile[rows][:, torch.from_numpy(lx).to(tile.device)].cpu().numpy()
+            return tile[rows][:, torch.from_numpy(lx).to(tile.device)]
         if self.layout == "words":
-            return bitpack.cells_at(tile, rows, lx).cpu().numpy()
+            return bitpack.cells_at(tile, rows, lx)
         view = bitpack.cells_at(tile[0], rows, lx)
         for k in range(1, tile.shape[0]):
             view = view | (bitpack.cells_at(tile[k], rows, lx) << k)
-        return view.cpu().numpy()
+        return view
 
     def _host_layout(self) -> np.ndarray:
         """The board in its layout on the host (packed words and planes as
@@ -508,51 +769,21 @@ class Simulation:
             return self.board.cpu().numpy()
         return bitpack.words_to_numpy(self.board)
 
-    def _population(self) -> int:
-        """Cells in state 1 (alive, or WireWorld's electron heads)."""
-        total = 0
+    def _populations(self) -> List[torch.Tensor]:
+        """Cells in state 1 (alive, or WireWorld's electron heads), one
+        device scalar per tile."""
+        out = []
         for tile in self._tiles():
             if self.layout == "dense":
-                total += int((tile == 1).sum())
+                out.append((tile == 1).sum(dtype=torch.int64))
             else:
                 words = tile if self.layout == "words" else bitpack_gen.alive_plane(tile)
-                total += int(bitpack.population_rows(words).sum())
-        return total
+                out.append(bitpack.population_rows(words).sum())
+        return out
 
-    def _sample(self, sy: int, sx: int) -> np.ndarray:
-        """Every sy-th row and sx-th column of the board, as host uint8."""
-        h, w = self.config.shape
-        return self._cells(np.arange(0, h, sy), np.arange(0, w, sx))
-
-    def _observe(self, *, render: bool) -> None:
-        """Population (always), a strided sample (at render cadence), the
-        probe window and the digest, all computed on the device; the clock
-        starts after the stepper's work has finished, so ``obs`` on the
-        metrics line is the observation's own cost."""
-        cfg = self.config
-        self._sync()
-        t0 = time.perf_counter()
-        population = self._population()
-        strides = sample_strides(cfg.shape, cfg.render_max_cells)
-        view = self._sample(*strides) if render else None
-        digest = self.board_digest() if cfg.obs_digest else None
-        win = self.board_window(*cfg.probe_window) if self._probe_due(render) else None
-        obs_seconds = time.perf_counter() - t0
-        self.observer.observe_summary(
-            self.epoch,
-            population,
-            cfg.shape,
-            view,
-            strides,
-            obs_seconds=obs_seconds,
-            digest=digest,
-        )
-        if win is not None:
-            self.observer.observe_window(self.epoch, win, cfg.probe_window)
-
-    def board_digest(self) -> int:
-        """The 64-bit digest of the current board (~8 fetched bytes; on a
-        mesh, the fold of each tile's lanes)."""
+    def _digest_parts(self) -> List[torch.Tensor]:
+        """The board digest's (2,) lanes, one part per tile (their sum mod
+        2³² is the digest: ``digest.merge_lanes``)."""
         cfg = self.config
         if self.mesh is not None:
             if self._digest is None:
@@ -563,19 +794,153 @@ class Simulation:
                     ),
                     "dense": lambda: pdigest.sharded_dense_digest_fn(self.mesh, cfg.shape),
                 }[self.layout]()
-            return odigest.value(self._digest(self.board))
+            return self._digest.parts(self.board)
         if self.layout == "words":
-            lanes = odigest.digest_packed(self.board, cfg.width)
-        elif self.layout == "planes":
-            lanes = odigest.digest_planes(self.board, cfg.width)
-        else:
-            lanes = odigest.digest_dense(self.board)
-        return odigest.value(lanes)
+            return [odigest.digest_packed(self.board, cfg.width)]
+        if self.layout == "planes":
+            return [odigest.digest_planes(self.board, cfg.width)]
+        return [odigest.digest_dense(self.board)]
+
+    # -- observation -----------------------------------------------------------
+
+    def _observe(self, *, render: bool) -> None:
+        """Population (always), a strided sample (at render cadence), the
+        probe window and the digest, all computed on the device.  In sync
+        mode the clock starts after the stepper's work has finished, so
+        ``obs`` on the metrics line is the observation's own cost; under
+        ``obs_defer`` the record is only dispatched here."""
+        if self.config.obs_defer:
+            self._pending_obs.append(self._obs_dispatch(render))
+            return
+        self._sync()
+        t0 = time.perf_counter()
+        self._obs_emit(self._obs_dispatch(render), t0)
+
+    def _obs_dispatch(self, render: bool) -> dict:
+        """Dispatch the cadence observation on the device and start its
+        copies to the host; nothing here waits for them."""
+        cfg = self.config
+        strides = sample_strides(cfg.shape, cfg.render_max_cells)
+        h, w = cfg.shape
+        tree = {
+            "pops": self._populations(),
+            "view": (
+                self._cells_request(np.arange(0, h, strides[0]), np.arange(0, w, strides[1]))
+                if render else None
+            ),
+            "win": None,
+            "digest": self._digest_parts() if cfg.obs_digest else None,
+        }
+        if self._probe_due(render):
+            y0, y1, x0, x1 = cfg.probe_window
+            tree["win"] = self._cells_request(np.arange(y0, y1), np.arange(x0, x1))
+        return {"epoch": self.epoch, "strides": strides, "fetch": _HostFetch(tree)}
+
+    def _obs_emit(self, rec: dict, t0: float, on_fetched=None) -> None:
+        """Read a dispatched record and emit its observer lines.  ``t0`` is
+        where the obs clock started (dispatch in sync mode, the read in
+        deferred mode).  ``on_fetched`` runs once the copies have landed,
+        before any line is written, so a failed write consumes the record
+        rather than repeating it."""
+        cfg = self.config
+        dig_t0 = time.perf_counter()
+        got = rec["fetch"].result()
+        if on_fetched is not None:
+            on_fetched()
+        digest = None
+        if got["digest"] is not None:
+            with self.tracer.span("obs.digest", node=self._node, epoch=rec["epoch"]) as sp:
+                digest = odigest.value(odigest.merge_lanes(got["digest"]))
+                sp.set(digest=odigest.format_digest(digest))
+            self._m_digest_seconds.observe(time.perf_counter() - dig_t0)
+            self._m_digest_checks.inc()
+        population = int(sum(int(p) for p in got["pops"]))
+        view = self._join(got["view"]) if got["view"] is not None else None
+        win = self._join(got["win"]) if got["win"] is not None else None
+        obs_seconds = time.perf_counter() - t0
+        self._m_obs_seconds.observe(obs_seconds)
+        self.observer.observe_summary(
+            rec["epoch"],
+            population,
+            cfg.shape,
+            view,
+            rec["strides"],
+            obs_seconds=obs_seconds,
+            digest=digest,
+        )
+        if win is not None:
+            self.observer.observe_window(rec["epoch"], win, cfg.probe_window)
+
+    def _obs_resolve(self) -> None:
+        """Emit every pending deferred record, oldest first (a no-op in sync
+        mode)."""
+        while self._pending_obs:
+            self._obs_emit(
+                self._pending_obs[0],
+                time.perf_counter(),
+                on_fetched=lambda: self._pending_obs.pop(0),
+            )
+
+    def board_digest(self) -> int:
+        """The 64-bit digest of the current board (~8 fetched bytes per
+        tile)."""
+        parts = _HostFetch(self._digest_parts()).result()
+        return odigest.value(odigest.merge_lanes(parts))
+
+    # -- failure and recovery --------------------------------------------------
+
+    def _crash_and_recover(self) -> None:
+        """An injected crash: the device board is lost; restore the newest
+        checkpoint and replay the missed epochs through the same steppers
+        (the rule is deterministic, so the trajectory is the same)."""
+        # Deferred records hold copies of the pre-crash board's results,
+        # which replay reproduces: emit them before the epoch rewinds.
+        self._obs_resolve()
+        # A save in flight must land before the restore reads the store.
+        self._ckpt_wait()
+        target = self.epoch
+        self.crash_log.append(target)
+        with self.tracer.span("chaos.crash", node=self._node, epoch=target):
+            self.events.emit("crash_injected", epoch=target)
+            self.board = None  # the crash: live state gone
+            self.tracer.flight.dump("crash_injected", node=self._node)
+        recover_span = self.tracer.span("chaos.recover", node=self._node, epoch=target)
+        recover_span.__enter__()
+        restored_epoch = None
+        try:
+            if self.store.latest_epoch() is not None:
+                payload = self._restore()
+            else:
+                self.epoch = 0
+                payload = self._start_payload()
+            self.board = self._place(payload)
+            restored_epoch = self.epoch
+            while self.epoch < target:
+                chunk = min(self.config.steps_per_call, target - self.epoch)
+                self.board = self._stepper(chunk)(self.board)
+                self.epoch += chunk
+        finally:
+            if restored_epoch is not None:
+                recover_span.set(
+                    restored_from=restored_epoch, replayed=target - restored_epoch
+                )
+            recover_span.__exit__(None, None, None)
+        self.metrics.counter("gol_chaos_recovered_total").inc()
+        self.metrics.counter("gol_chaos_replay_epochs_total").inc(target - restored_epoch)
+        self.events.emit(
+            "crash_recovered",
+            epoch=target,
+            restored_from=restored_epoch,
+            replayed=target - restored_epoch,
+        )
+
+    # -- durability ------------------------------------------------------------
 
     def checkpoint(self) -> None:
-        """Save the board of the current epoch in its layout (synchronous;
-        a mesh's tiles are gathered first, so the file is the same as a
-        single-device run's)."""
+        """Save the board of the current epoch in its layout: on the writer
+        thread (``checkpoint_async``, at most one save in flight) or before
+        returning.  A mesh's tiles are gathered on the host first, so the
+        file is the same as a single-device run's."""
         if self.store is None:
             raise RuntimeError("no checkpoint_dir configured")
         cfg = self.config
@@ -583,20 +948,70 @@ class Simulation:
         if cfg.obs_digest:
             meta["digest"] = odigest.format_digest(self.board_digest())
         rule = self.rule.rulestring()
-        t0 = time.perf_counter()
-        if self.layout == "dense":
-            self.store.save(self.epoch, self._host_layout(), rule, meta=meta)
+        epoch = self.epoch
+        # Bind the snapshot now: the loop replaces self.board while an async
+        # save runs, and no stepper writes the tensor it was given.
+        board = self._host_layout() if self.mesh is not None else self.board
+        layout = self.layout
+        self.events.emit("checkpoint_requested", epoch=epoch, format="npz")
+
+        def save() -> None:
+            if isinstance(board, np.ndarray):
+                host = board
+            elif layout == "dense":
+                host = board.cpu().numpy()
+            else:
+                host = bitpack.words_to_numpy(board)
+            if layout == "dense":
+                self.store.save(epoch, host, rule, meta=meta)
+            else:
+                self.store.save_packed32(epoch, host, cfg.shape, rule, meta=meta)
+
+        if cfg.checkpoint_async:
+            self._ckpt_wait()
+            if self._ckpt_executor is None:
+                self._ckpt_executor = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="ckpt"
+                )
+
+            def timed_save() -> float:
+                t0 = time.perf_counter()
+                save()
+                return (time.perf_counter() - t0) * 1e3
+
+            self._ckpt_pending = (self._ckpt_executor.submit(timed_save), epoch)
+        elif cfg.metrics_every:
+            with profiling.timed(
+                f"checkpoint@{epoch}",
+                out=self.observer.out,
+                registry=self.metrics,
+                span="checkpoint",
+            ):
+                save()
         else:
-            self.store.save_packed32(
-                self.epoch, self._host_layout(), cfg.shape, rule, meta=meta,
-            )
-        if cfg.metrics_every:
+            save()
+
+    def flush(self) -> None:
+        """Block until the save in flight (if any) is on disk; raises the
+        writer's error here."""
+        self._ckpt_wait()
+
+    def _ckpt_wait(self) -> None:
+        """Drain the in-flight save (no-op if none), raising its error on
+        the thread that asked for durability."""
+        if self._ckpt_pending is None:
+            return
+        future, epoch = self._ckpt_pending
+        self._ckpt_pending = None
+        ms = future.result()
+        if self.config.metrics_every:
             print(
-                f"[profile] checkpoint@{self.epoch}: "
-                f"{(time.perf_counter() - t0) * 1e3:.2f} ms",
+                f"[profile] checkpoint@{epoch} (async write): {ms:.2f} ms",
                 file=self.observer.out,
                 flush=True,
             )
+
+    # -- reads -----------------------------------------------------------------
 
     def board_window(self, y0: int, y1: int, x0: int, x1: int) -> np.ndarray:
         """A (y1-y0, x1-x0) uint8 window of the board, fetched O(window)."""
@@ -617,7 +1032,27 @@ class Simulation:
         return board
 
     def close(self) -> None:
-        self.observer.close()
+        """Make the last save durable, then release the writer and write
+        the run's final metrics, trace and events."""
+        try:
+            self._ckpt_wait()
+        finally:
+            if self._ckpt_executor is not None:
+                self._ckpt_executor.shutdown(wait=True)
+                self._ckpt_executor = None
+            if self.store is not None:
+                self.store.close()
+            try:
+                self._dump_metrics()
+                if self.config.trace_file:
+                    try:
+                        self.tracer.write(self.config.trace_file)
+                    except OSError as e:
+                        print(f"trace-file write failed: {e}", flush=True)
+            finally:
+                self.events.emit("sim_closed", epoch=self.epoch)
+                self.events.close()
+                self.observer.close()
 
     def __enter__(self):
         return self

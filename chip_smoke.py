@@ -33,6 +33,19 @@ paths through its CLI:
   checkpoint; both end on the digests of the plain packed ``run`` on the
   card.
 
+- ``tune`` (the tile autotuner) through the CLI: Conway at 65536² on the
+  JAX package's default grid, WireWorld and ``bugs`` at 16384², every point
+  a tile variant of the packed, plane or LtL kernel, every variant held
+  bit-exact against its plain version; the headline then runs with the
+  tuned tile and reaches the default tile's digests;
+- ``selftest --kernel auto`` and ``--kernel pallas`` on the card;
+- the headline with the rest of ``run``: an injected crash replayed from
+  the epoch-120 checkpoint (with ``--metrics-file`` and ``--log-events``),
+  ``--obs-defer``, ``--checkpoint-sync`` against the default writer thread,
+  SIGINT after the first checkpoint (exit 130, an interrupt checkpoint, a
+  resume, ``checkpoints --validate``), and ``--trace-dir`` (the device-busy
+  share and the top device operations, read from the trace).
+
 The single-device runs name ``cuda:0``, so they stay on one card on a
 machine with several.  Then it times each kernel at its main-path shape,
 the mesh's halo exchange and per-tile sweeps, and the worker's chunk engine
@@ -76,6 +89,7 @@ KERNEL_SOURCE = {
 }
 WIRINGS = ("worker_chunk", "sharded_sweep", "sharded_gen_sweep")
 SINGLE = "cuda:0"  # the single-device runs' device
+SELFTEST_DEVICE = "cuda"  # every visible card: ``sharded`` needs two
 
 RULES = ["conway", "highlife", "day-and-night", "seeds", "life-without-death"]
 SMALL_SHAPES = [(1, 1), (3, 1), (37, 3), (64, 2), (1000, 33)]
@@ -125,6 +139,25 @@ WAIT_S = 240  # bound on every wait of the multi-process run
 # The mesh: four slots, the headline on (4, 1) and (2, 2), WireWorld and
 # bugs on (2, 2); the sharded sweeps against the plain sharded steppers on
 # these meshes, at 10, 31 and 60 generations per call.
+# The tune phase: JAX's default grid for Conway at the headline's width;
+# WireWorld and bugs at 16384² (every point of each grid is feasible under
+# the port's rules, so none is dropped; LtL runs k = 1).
+TUNE_RUNS = {
+    "conway": dict(size=65536, spc=64, blocks=(64, 128, 192, 256), sweeps=(4, 8, 16)),
+    "wireworld": dict(size=16384, spc=60, blocks=(64, 128, 192, 256), sweeps=(5, 10, 20)),
+    "bugs": dict(size=16384, spc=10, blocks=(32, 64, 128), sweeps=(4, 8, 16)),
+}
+TUNE_TIMED_CALLS = 2
+# The injected crash: due at the first chunk start past epoch 150 (epoch
+# 180), after the epoch-120 checkpoint; replayed from it.
+CHAOS_TOML = """
+[fault_injection]
+first_after_epochs = 150
+every_epochs = 1000
+max_crashes = 1
+"""
+INTERRUPT_TICK = "4s"  # paces the SIGINT run: one 60-epoch chunk per 4 s
+
 MESH_SLOTS = 4
 MESH_PARITY_SHAPES = [(1, 1), (4, 1), (2, 2), (1, 4)]
 MESH_PARITY_STEPS = [10, 31, 60]
@@ -246,8 +279,8 @@ class Errors:
     uint8 cells."""
 
     def __init__(self):
-        self.max = {name: 0 for name in KERNELS + WIRINGS}
-        self.checks = {name: 0 for name in KERNELS + WIRINGS}
+        self.max = {name: 0 for name in KERNELS + WIRINGS + ("tune",)}
+        self.checks = {name: 0 for name in KERNELS + WIRINGS + ("tune",)}
 
     def hold(self, name: str, got, plain, what: str) -> None:
         import torch
@@ -259,21 +292,36 @@ class Errors:
         check(torch.equal(got, plain), f"{name} != plain at {what}")
 
 
+def tune_libraries():
+    """(kernel, defines) of every tile variant the tune phase runs."""
+    from akka_game_of_life_tpu_torch.runtime import autotune
+
+    libs = set()
+    for rule, grid in TUNE_RUNS.items():
+        kernel = autotune.kernel_of(rule)
+        for b in grid["blocks"]:
+            libs.add((kernel, autotune.variant_defines(kernel, b)))
+    return sorted(libs)
+
+
 def build_all(card):
-    """Each kernel's library, built from its source by one nvcc each, all
-    started together."""
+    """Each kernel's library and every tile variant of the tune phase,
+    built from its source by one nvcc each, all started together."""
     from akka_game_of_life_tpu_torch.ops import _build
 
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = dict(zip(KERNELS, pool.map(_build.load, KERNELS)))
+    libs = sorted({(name, ()) for name in KERNELS} | set(tune_libraries()))
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        built = dict(zip(libs, pool.map(lambda lib: _build.load(*lib), libs)))
     (OUT / "nvcc.log").write_text(
-        "".join(f"== {name} ({b.seconds:.2f} s)\n{b.log}\n" for name, b in built.items())
+        "".join(f"== {name} {defines} ({b.seconds:.2f} s)\n{b.log}\n"
+                for (name, defines), b in built.items())
     )
     import torch
 
     emit(
         "device", card=card, torch=torch.__version__, cuda=torch.version.cuda,
-        build_s={name: b.seconds for name, b in built.items()},
+        build_s={f"{name}{''.join(defines)}": b.seconds for (name, defines), b in built.items()},
+        libraries=len(libs),
     )
 
 
@@ -498,7 +546,8 @@ def pattern_path(path: Path, kernel: str, tmp: Path, card, *,
         observer_cell_updates_per_s=summary["cell_updates_per_sec"],
         card=card["name_power"],
     )
-    return {"launches": counts[kernel], "expected": expected, "run_s": run_s, "ckpt": ckpt}
+    return {"launches": counts[kernel], "expected": expected, "run_s": run_s, "ckpt": ckpt,
+            "metrics": metrics, "windows": windows, "sweeps": sweeps, "text": text}
 
 
 def ltl_path(tmp: Path, card):
@@ -548,6 +597,350 @@ def ltl_path(tmp: Path, card):
         card=card["name_power"],
     )
     return auto_counts["ltl_sweep"], dense, dense_s
+
+
+# -- the tune phase, the tuned tile, selftest -----------------------------------
+
+
+def _tune_argv(rule, grid):
+    return ["tune", "--rule", rule, "--size", str(grid["size"]),
+            "--steps-per-call", str(grid["spc"]),
+            "--blocks", ",".join(map(str, grid["blocks"])),
+            "--sweeps", ",".join(map(str, grid["sweeps"])),
+            "--timed-calls", str(TUNE_TIMED_CALLS), "--device", SINGLE]
+
+
+def hold_variants(errors, rng, rule, grid):
+    """Every tile variant of a tune grid against the plain version through
+    the ops API: at the tune's own board size and at the small ragged
+    shapes, at every depth of the grid."""
+    import numpy as np
+    import torch
+
+    from akka_game_of_life_tpu_torch.ops import bitpack, bitpack_gen, gen_sweep, ltl_sweep, packed_sweep
+    from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
+    from akka_game_of_life_tpu_torch.runtime import autotune
+
+    kernel, size = autotune.kernel_of(rule), grid["size"]
+    if kernel == "ltl_sweep":
+        for shape in LTL_SHAPES + [(size, size)]:
+            board = torch.from_numpy(
+                (rng.random(shape, dtype=np.float32) < 0.4).astype(np.uint8)).to(SINGLE)
+            plain = ltl_sweep.ltl_sweep_reference(board, rule)
+            for b in grid["blocks"]:
+                errors.hold("tune", ltl_sweep.ltl_sweep(board, rule, tile_rows=b), plain,
+                            f"{rule} tile {b} {shape}")
+            del board, plain
+            torch.cuda.empty_cache()
+        return
+    m = 1 if kernel == "packed_sweep" else bitpack_gen.n_planes(resolve_rule(rule).states)
+    for shape in SMALL_SHAPES + [(size, size // 32)]:
+        raw = rng.integers(0, 2**32, size=(m, *shape), dtype=np.uint32)
+        x = (bitpack.words_from_numpy(raw[0], SINGLE) if m == 1
+             else bitpack_gen.planes_from_numpy(raw, SINGLE))
+        for k in grid["sweeps"]:
+            if kernel == "packed_sweep":
+                plain = packed_sweep.packed_sweep_reference(x, rule, k)
+                run = lambda b: packed_sweep.packed_sweep(x, rule, k, tile_rows=b)
+            else:
+                plain = gen_sweep.gen_sweep_reference(x, rule, k)
+                run = lambda b: gen_sweep.gen_sweep(x, rule, k, tile_rows=b)
+            for b in grid["blocks"]:
+                errors.hold("tune", run(b), plain, f"{rule} tile {b} k={k} {shape}")
+            del plain
+        del x
+        torch.cuda.empty_cache()
+
+
+def tune_phase(errors, rng, card):
+    """``tune`` through the CLI for each grid: no point errs, the summary
+    line is printed, the counters saw the planned launches, and every
+    variant the tune built is bit-exact against its plain version."""
+    from akka_game_of_life_tpu_torch.runtime import autotune
+
+    out = {}
+    for rule, grid in TUNE_RUNS.items():
+        kernel = autotune.kernel_of(rule)
+        zero_counts()
+        text, run_s = run_cli(_tune_argv(rule, grid), f"tune_{rule}.log")
+        counts = read_counts()
+        lines = text.splitlines()
+        recs = [json.loads(line) for line in lines if line.startswith("{")]
+        points = [r for r in recs if "block_rows" in r]
+        summary = [r for r in recs if "tune" in r]
+        depths = [1] if kernel == "ltl_sweep" else grid["sweeps"]
+        grid_points = {(b, k) for b in grid["blocks"] for k in depths
+                       if autotune.feasible(grid["size"], grid["spc"], b, k, rule)}
+        check(not [p for p in points if "error" in p], f"tune {rule}: error points {points}")
+        check({(p["block_rows"], p["steps_per_sweep"]) for p in points} == grid_points,
+              f"tune {rule}: points {points}")
+        check(len(summary) == 1 and summary[0]["best"] == points[0],
+              f"tune {rule}: summary {summary}")
+        check(lines[-1] == f"best: {summary[0]['flags']}", f"tune {rule}: last line {lines[-1]}")
+        plan = autotune.planned_launches(points, grid["spc"], TUNE_TIMED_CALLS, rule)
+        check(counts[kernel] == plan and sum(counts.values()) == plan,
+              f"tune {rule}: launches {counts}, planned {plan} of {kernel}")
+        before = errors.checks["tune"]
+        hold_variants(errors, rng, rule, grid)
+        emit("tune", rule=rule, kernel=kernel, grid=grid, points=points,
+             summary=summary[0], launches=counts[kernel], planned_launches=plan,
+             variant_checks=errors.checks["tune"] - before,
+             max_abs_err=errors.max["tune"], run_s=run_s, card=card["name_power"])
+        out[rule] = {"points": points, "launches": counts[kernel], "grid": grid}
+    return out
+
+
+def tuned_headline(tune, headline, tmp: Path, card):
+    """The headline under ``--kernel pallas --pallas-block-rows B``, B the
+    Conway tune's best tile that is not the default: every launch goes
+    through that variant's library, and the digests at every cadence epoch
+    equal the default tile's."""
+    from akka_game_of_life_tpu_torch.ops import packed_sweep
+    from akka_game_of_life_tpu_torch.runtime import autotune
+
+    default = autotune.default_tile_rows("conway")
+    points = tune["conway"]["points"]
+    b = next(p["block_rows"] for p in points if p["block_rows"] != default)
+    defines = []
+    real = packed_sweep._launch
+
+    def spy(words, rule, k, variant=()):
+        defines.append(variant)
+        return real(words, rule, k, variant)
+
+    packed_sweep._launch = spy
+    try:
+        zero_counts()
+        text, run_s = run_cli(
+            ["run", "--config", str(HEADLINE), "--obs-digest", "--kernel", "pallas",
+             "--pallas-block-rows", str(b), "--checkpoint-dir", str(tmp / "tuned-ckpt"),
+             "--device", SINGLE],
+            "headline_tuned_tile.log",
+        )
+    finally:
+        packed_sweep._launch = real
+    counts = read_counts()
+    check(counts["packed_sweep"] == headline["sweeps"], f"tuned headline launches {counts}")
+    check(set(defines) == {packed_sweep.tile_defines(b)}, f"tuned headline variants {set(defines)}")
+    metrics, windows = parse_run(text)
+    check(metrics == headline["metrics"], "tuned headline digests differ from the default tile's")
+    check(windows == headline["windows"], "tuned headline windows differ")
+    emit("tuned_tile", config=str(HEADLINE.relative_to(ROOT)), tile_rows=b,
+         default_tile_rows=default, winner=points[0], launches=counts,
+         digests={e: metrics[e][1] for e in metrics}, run_s=run_s,
+         default_run_s=headline["run_s"], card=card["name_power"])
+    return b
+
+
+def selftest_phase(card):
+    """``selftest`` for auto and pallas: every check passes, ``sharded``
+    skips on one card and passes on more, and each line names the CUDA
+    path."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    for kernel in ("auto", "pallas"):
+        text, run_s = run_cli(["selftest", "--kernel", kernel, "--device", SELFTEST_DEVICE],
+                              f"selftest_{kernel}.log")
+        recs = {r["check"]: r for r in
+                (json.loads(line) for line in text.splitlines() if line.startswith("{"))}
+        check(len(recs) == 7, f"selftest {kernel}: {sorted(recs)}")
+        for name, rec in recs.items():
+            want = "skip" if name == "sharded" and cards < 2 else "pass"
+            check(rec["status"] == want, f"selftest {kernel} {name}: {rec}")
+            check(rec["backend"] == SELFTEST_DEVICE, f"selftest {kernel} {name}: {rec}")
+        for name in ("gun-phase", "oracle", "checkpoint", "chaos", "obs-defer"):
+            check(recs[name]["resolved"] == "sweep", f"selftest {kernel} {name}: {recs[name]}")
+        check(recs["families"]["resolved"] == "wireworld=gen_sweep, ltl=dense",
+              f"selftest {kernel} families: {recs['families']}")
+        emit("selftest", kernel=kernel, checks=list(recs.values()), run_s=run_s,
+             cards=cards, card=card["name_power"])
+
+
+# -- the headline with the rest of run -------------------------------------------
+
+
+def _headline_run(args, log_name, tmp: Path, tag: str):
+    """The headline through the CLI with extra flags and its own checkpoint
+    directory; returns (text, wall s, launches, metrics, windows)."""
+    zero_counts()
+    text, run_s = run_cli(
+        ["run", "--config", str(HEADLINE), "--obs-digest", "--device", SINGLE,
+         "--checkpoint-dir", str(tmp / f"{tag}-ckpt"), *args],
+        log_name,
+    )
+    metrics, windows = parse_run(text)
+    return text, run_s, read_counts(), metrics, windows
+
+
+def _checkpoint_lines(text):
+    return re.findall(r"^\[profile\] (checkpoint@\d+(?: \(async write\))?): ([\d.]+) ms$",
+                      text, re.M)
+
+
+def headline_machinery(headline, tmp: Path, card):
+    """The headline with an injected crash (and the metrics file and event
+    log), with deferred observation, and with synchronous checkpoints: each
+    against the default run's digests (and windows)."""
+    from akka_game_of_life_tpu_torch.obs import CATALOG
+    from akka_game_of_life_tpu_torch.runtime.checkpoint import describe_store
+
+    want, windows_want, sweeps = headline["metrics"], headline["windows"], headline["sweeps"]
+    # An injected crash after the epoch-120 checkpoint, replayed from it.
+    chaos_toml = tmp / "headline-chaos.toml"
+    chaos_toml.write_text(HEADLINE.read_text() + CHAOS_TOML)
+    prom, events_path = tmp / "chaos.prom", tmp / "chaos-events.jsonl"
+    text, chaos_s, counts, metrics, _ = _headline_run(
+        ["--config", str(chaos_toml), "--inject-faults", "--metrics-file", str(prom),
+         "--log-events", str(events_path), "--flight-dir", str(tmp / "flight")],
+        "headline_chaos.log", tmp, "chaos",
+    )
+    check(metrics == want, "headline with an injected crash: digests differ")
+    events = [json.loads(line) for line in events_path.read_text().splitlines()]
+    crashes = [e for e in events if e["event"] == "crash_injected"]
+    recovered = [e for e in events if e["event"] == "crash_recovered"]
+    check([e["epoch"] for e in crashes] == [180], f"crashes {crashes}")
+    check([(e["restored_from"], e["replayed"]) for e in recovered] == [(120, 60)],
+          f"recoveries {recovered}")
+    check(counts["packed_sweep"] == sweeps + 6, f"chaos launches {counts} (replay: 6 sweeps)")
+    names = {line.split()[2] for line in prom.read_text().splitlines()
+             if line.startswith("# TYPE ")}
+    missing = sorted(name for name, *_ in CATALOG if name not in names)
+    check(not missing, f"--metrics-file lacks {missing}")
+    emit("headline_chaos", crash_epochs=[e["epoch"] for e in crashes],
+         restored_from=recovered[0]["restored_from"], replayed=recovered[0]["replayed"],
+         launches=counts, metric_names=len(names), run_s=chaos_s, card=card["name_power"])
+
+    # Deferred observation: the same digests and probe windows.
+    text, defer_s, counts, metrics, windows = _headline_run(
+        ["--obs-defer"], "headline_obs_defer.log", tmp, "defer")
+    check(metrics == want and windows == windows_want, "--obs-defer: digests or windows differ")
+    check(counts["packed_sweep"] == sweeps, f"--obs-defer launches {counts}")
+    emit("headline_obs_defer", run_s=defer_s, default_run_s=headline["run_s"],
+         windows_checked=sorted(windows), card=card["name_power"])
+
+    # Synchronous checkpoints against the default writer thread.
+    text, sync_s, counts, metrics, _ = _headline_run(
+        ["--checkpoint-sync"], "headline_checkpoint_sync.log", tmp, "sync")
+    check(metrics == want, "--checkpoint-sync: digests differ")
+    default_ck = {i["epoch"]: i for i in describe_store(str(headline["ckpt"]))}
+    sync_ck = {i["epoch"]: i for i in describe_store(str(tmp / "sync-ckpt"))}
+    check(sorted(default_ck) == sorted(sync_ck) == [120, 240], f"checkpoints {sorted(sync_ck)}")
+    for epoch in (120, 240):
+        check(default_ck[epoch]["digest"] == sync_ck[epoch]["digest"]
+              and default_ck[epoch]["bytes"] == sync_ck[epoch]["bytes"],
+              f"checkpoint {epoch}: async {default_ck[epoch]} != sync {sync_ck[epoch]}")
+    emit("headline_checkpoint_writer", async_run_s=headline["run_s"], sync_run_s=sync_s,
+         async_lines=_checkpoint_lines(headline["text"]), sync_lines=_checkpoint_lines(text),
+         digests={e: sync_ck[e]["digest"] for e in sync_ck}, card=card["name_power"])
+
+
+def headline_interrupt(headline, tmp: Path, card):
+    """SIGINT to a paced headline process once it has printed epoch 180 and
+    its epoch-120 checkpoint is on disk: exit 130 and an interrupt
+    checkpoint at epoch 180; a resume from it reaches the default run's
+    epoch-240 digest; ``checkpoints --validate`` passes."""
+    from akka_game_of_life_tpu_torch.runtime.checkpoint import CheckpointStore
+
+    ckpt = tmp / "interrupt-ckpt"
+    env = {**os.environ,
+           "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        _port_cli("run", "--config", str(HEADLINE), "--obs-digest", "--device", SINGLE,
+                  "--tick", INTERRUPT_TICK, "--checkpoint-dir", str(ckpt),
+                  "--flight-dir", str(tmp / "flight")),
+        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        lines: "queue.Queue[str]" = queue.Queue()
+        threading.Thread(target=_reader, args=(proc, OUT / "headline_interrupt.log", lines),
+                         daemon=True).start()
+        _await_line(lines, r"^epoch 180: pop=", time.monotonic() + WAIT_S, "epoch 180")
+        first = ckpt / f"ckpt_{120:012d}.npz"
+        deadline = time.monotonic() + WAIT_S
+        while not first.exists():
+            check(time.monotonic() < deadline, "no epoch-120 checkpoint")
+            time.sleep(0.05)
+        signalled_s = time.perf_counter() - t0
+        proc.send_signal(signal.SIGINT)
+        proc.wait(timeout=WAIT_S)
+        err = proc.stderr.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    (OUT / "headline_interrupt.stderr").write_text(err)
+    check(proc.returncode == 130, f"interrupted run exited {proc.returncode}")
+    m = re.search(r"interrupted at epoch (\d+); checkpoint written", err)
+    check(m is not None, "no interrupt checkpoint line")
+    epoch = int(m.group(1))
+    check(epoch == 180 and CheckpointStore(str(ckpt)).latest_epoch() == epoch,
+          f"interrupt checkpoint at {epoch}")
+    zero_counts()
+    text, resume_s = run_cli(
+        ["run", "--config", str(HEADLINE), "--obs-digest", "--device", SINGLE,
+         "--checkpoint-dir", str(ckpt)],
+        "headline_interrupt_resume.log",
+    )
+    resumed, _ = parse_run(text)
+    check(resumed.get(240) == headline["metrics"][240],
+          f"resume from the interrupt checkpoint: {resumed.get(240)}")
+    text, validate_s = run_cli(["checkpoints", str(ckpt), "--validate"],
+                               "headline_interrupt_checkpoints.log")
+    infos = [json.loads(line) for line in text.splitlines()]
+    check(infos and all(i.get("ok") and i.get("digest_ok") for i in infos),
+          f"checkpoints --validate: {infos}")
+    emit("headline_interrupt", signalled_after_s=signalled_s, interrupt_epoch=epoch,
+         resumed_digest=resumed[240][1], checkpoints=infos, resume_run_s=resume_s,
+         validate_s=validate_s, card=card["name_power"])
+
+
+def _device_busy(trace_path: Path):
+    """The device-busy share of a ``torch.profiler`` Chrome trace: the union
+    of the device intervals (kernels, copies, sets) over the traced window,
+    and the device operations by total time."""
+    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    busy, reach = 0.0, start
+    for e in sorted(device, key=lambda e: e["ts"]):
+        lo, hi = max(e["ts"], reach), e["ts"] + e["dur"]
+        if hi > lo:
+            busy += hi - lo
+            reach = hi
+    by_name = {}
+    for e in device:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {
+        "window_ms": (end - start) / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "device_busy_share": busy / (end - start),
+        "device_events": len(device),
+        "top_device_ops_ms": [(name[:120], dur / 1e3) for name, dur in top],
+    }
+
+
+def headline_trace(headline, tmp: Path, card):
+    """The headline under ``--trace-dir``: the device-busy share of the
+    traced wall and the top device operations, read from the trace."""
+    from akka_game_of_life_tpu_torch.runtime import profiling
+
+    trace_dir = tmp / "trace"
+    text, run_s, counts, metrics, _ = _headline_run(
+        ["--trace-dir", str(trace_dir)], "headline_trace.log", tmp, "trace")
+    check(metrics == headline["metrics"], "--trace-dir: digests differ")
+    check(re.search(r"^\[profile\] cuda:0: \{", text, re.M) is not None,
+          "no end-of-run [profile] device line")
+    busy = _device_busy(trace_dir / profiling.TRACE_FILE)
+    check(busy["device_events"] > 0, "the trace holds no device operation")
+    emit("headline_trace", **busy, run_s=run_s, default_run_s=headline["run_s"],
+         trace_mib=(trace_dir / profiling.TRACE_FILE).stat().st_size / 2**20,
+         card=card["name_power"])
+    return busy
 
 
 # -- the mesh ---------------------------------------------------------------
@@ -1218,6 +1611,39 @@ def timings(card, words, gen_planes, ltl_board):
     return out
 
 
+def tune_timing(card, tune):
+    """The ``tune`` entry of the kernels line: the Conway tune's best point
+    in ms per steps_per_call-generation call (CUDA events, as the tune timed
+    it), the plain version of the same call, and the bound of its sweeps."""
+    import numpy as np
+
+    from akka_game_of_life_tpu_torch import bench
+    from akka_game_of_life_tpu_torch.ops import bitpack
+    from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
+
+    grid, best = TUNE_RUNS["conway"], tune["conway"]["points"][0]
+    k, spc, h = best["steps_per_sweep"], grid["spc"], grid["size"]
+    nw = h // 32
+    conway = resolve_rule("conway")
+    words = bitpack.words_from_numpy(
+        np.random.default_rng(1).integers(0, 2**32, size=(h, nw), dtype=np.uint32), SINGLE
+    )
+    plain = bench.time_ms(lambda: bitpack.packed_multi_step(words, conway, spc), reps=1, warmup=0)
+    one = bench.sweep_bound(h, nw, k, conway, card["int32_ops_per_s"])
+    sweeps = spc // k
+    bound = {**one, "bound_ms": one["bound_ms"] * sweeps, "bytes_ms": one["bytes_ms"] * sweeps,
+             "ops_ms": one["ops_ms"] * sweeps}
+    # From cells_per_sec, which the tune does not round (its seconds keep
+    # the JAX package's four decimals).
+    ms = h * h * spc / best["cells_per_sec"] * 1e3
+    emit("timing", kernel="tune", rule="conway", shape=[h, nw], steps_per_call=spc,
+         best_point=best, ms_per_call=ms, plain_ms=plain, **bound,
+         share_of_bound=bound["bound_ms"] / ms, library_ms=None,
+         library_note="no single PyTorch call computes this packed step",
+         card=card["name_power"])
+    return (ms, plain, bound), best
+
+
 def main() -> int:
     import torch
 
@@ -1235,62 +1661,74 @@ def main() -> int:
     OUT.mkdir(exist_ok=True)
     card = bench.card()
     t_start = time.perf_counter()
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            phase_s[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
 
     # -- 1. device and build ---------------------------------------------------
-    build_all(card)
+    phase("build", build_all, card)
 
     # -- 2. each kernel against its plain version on the card ------------------
     rng = np.random.default_rng(0)
     errors = Errors()
-    words = check_packed_sweep(errors, rng)
-    gen_planes = check_gen_sweep(errors, rng, card)
-    ltl_board = check_ltl_sweep(errors, rng, card)
-    torch.cuda.empty_cache()
+    words = phase("check_packed_sweep", check_packed_sweep, errors, rng)
+    gen_planes = phase("check_gen_sweep", check_gen_sweep, errors, rng, card)
+    ltl_board = phase("check_ltl_sweep", check_ltl_sweep, errors, rng, card)
 
-    # -- 3. the main paths at full size -----------------------------------------
+    # -- 3. the tile autotuner --------------------------------------------------
+    tune = phase("tune", tune_phase, errors, rng, card)
+
+    # -- 4. the main paths at full size -----------------------------------------
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        headline = pattern_path(
+        headline = phase("headline", lambda: pattern_path(
             HEADLINE, "packed_sweep", tmp, card,
             reference_side=REFERENCE_SIDE, conserved=False,
-        )
-        wireworld = pattern_path(
+        ))
+        phase("tuned_tile", tuned_headline, tune, headline, tmp, card)
+        phase("headline_machinery", headline_machinery, headline, tmp, card)
+        phase("headline_interrupt", headline_interrupt, headline, tmp, card)
+        busy = phase("headline_trace", headline_trace, headline, tmp, card)
+        wireworld = phase("wireworld", lambda: pattern_path(
             WIREWORLD, "gen_sweep", tmp, card,
             reference_side=WIREWORLD_REFERENCE_SIDE, conserved=True,
-        )
+        ))
         launches["packed_sweep"] = headline["launches"]
         launches["gen_sweep"] = wireworld["launches"]
-        launches["ltl_sweep"], ltl_dense, ltl_dense_s = ltl_path(tmp, card)
-        torch.cuda.empty_cache()
+        launches["ltl_sweep"], ltl_dense, ltl_dense_s = phase("bugs", ltl_path, tmp, card)
+        phase("selftest", selftest_phase, card)
         devices = mesh_devices(card)
-        launches["sharded_sweep"] = mesh_headline(devices, headline, tmp, card)
-        torch.cuda.empty_cache()
-        launches["sharded_gen_sweep"] = mesh_wireworld(devices, wireworld, card)
-        mesh_bugs(devices, ltl_dense, ltl_dense_s, card)
-        torch.cuda.empty_cache()
-        mesh_parity(errors, rng, devices, card)
-        torch.cuda.empty_cache()
+        launches["sharded_sweep"] = phase("mesh_headline", mesh_headline, devices, headline, tmp, card)
+        launches["sharded_gen_sweep"] = phase("mesh_wireworld", mesh_wireworld, devices, wireworld, card)
+        phase("mesh_bugs", mesh_bugs, devices, ltl_dense, ltl_dense_s, card)
+        phase("mesh_parity", mesh_parity, errors, rng, devices, card)
         toml = tmp / "cluster-16384.toml"
         toml.write_text(CLUSTER_TOML)
-        want, ref_s = cluster_reference(toml)
+        want, ref_s = phase("cluster_reference", cluster_reference, toml)
         emit("cluster_reference", digests=want, run_s=ref_s, card=card["name_power"])
-        torch.cuda.empty_cache()
-        launches["worker_chunk"] = cluster_in_process(toml, want, tmp, card)
-        torch.cuda.empty_cache()
-        cluster_node_loss(toml, want, tmp, card)
+        launches["worker_chunk"] = phase("cluster_in_process", cluster_in_process, toml, want, tmp, card)
+        phase("cluster_node_loss", cluster_node_loss, toml, want, tmp, card)
     torch.cuda.empty_cache()
 
-    # -- 4. times on the card at the main paths' shapes ------------------------
-    times = timings(card, words, gen_planes, ltl_board)
+    # -- 5. times on the card at the main paths' shapes ------------------------
+    times = phase("timings", timings, card, words, gen_planes, ltl_board)
     del words, gen_planes, ltl_board
     torch.cuda.empty_cache()
-    err, ms, plain_ms, bound, chunk_ms = chunk_timing(card, rng)
+    err, ms, plain_ms, bound, chunk_ms = phase("chunk_timing", chunk_timing, card, rng)
     errors.max["worker_chunk"] = err
     times["worker_chunk"] = (ms, plain_ms, bound)
-    torch.cuda.empty_cache()
-    times.update(mesh_timing(card, rng, devices))
-    emit("done", seconds=time.perf_counter() - t_start, card=card["name_power"])
+    times.update(phase("mesh_timing", mesh_timing, card, rng, devices))
+    times["tune"], tune_best = phase("tune_timing", tune_timing, card, tune)
+    launches["tune"] = sum(run["launches"] for run in tune.values())
+    emit("done", seconds=time.perf_counter() - t_start, phase_seconds=phase_s,
+         device_busy_share=busy["device_busy_share"], card=card["name_power"])
 
     sources = {
         "packed_sweep": "akka_game_of_life_tpu/ops/pallas_stencil.py:236",
@@ -1299,12 +1737,16 @@ def main() -> int:
         "worker_chunk": "akka_game_of_life_tpu/runtime/backend.py:128",
         "sharded_sweep": "akka_game_of_life_tpu/parallel/pallas_halo.py:163",
         "sharded_gen_sweep": "akka_game_of_life_tpu/parallel/pallas_halo.py:216",
+        "tune": "akka_game_of_life_tpu/runtime/autotune.py:30",
     }
     entries = [
         {
             "name": name,
             "route": "cuda",
-            "source": f"akka_game_of_life_tpu_torch/csrc/{KERNEL_SOURCE.get(name, name)}.cu",
+            "source": (
+                "akka_game_of_life_tpu_torch/runtime/autotune.py" if name == "tune"
+                else f"akka_game_of_life_tpu_torch/csrc/{KERNEL_SOURCE.get(name, name)}.cu"
+            ),
             "replaces": sources[name],
             "launches": launches[name],
             "max_abs_err": errors.max[name],
@@ -1314,9 +1756,10 @@ def main() -> int:
             "bound_by": times[name][2]["bound_by"],
             "library_ms": None,
         }
-        for name in (*KERNELS, *WIRINGS)
+        for name in (*KERNELS, *WIRINGS, "tune")
     ]
     entries[len(KERNELS)]["chunk_ms"] = chunk_ms
+    entries[-1]["best_point"] = tune_best
     print(json.dumps({"kernels": entries}), flush=True)
     print(card["name_power"], flush=True)
     print(json.dumps({"ok": True, "device": {

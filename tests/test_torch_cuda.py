@@ -290,3 +290,99 @@ def test_meshed_simulation_on_card_matches_cpu(rule):
     (d_cpu, w_cpu), (d_card, w_card) = runs.values()
     assert d_cpu == d_card
     np.testing.assert_array_equal(w_cpu, w_card)
+
+
+# -- tile variants (runtime/autotune.py, run --pallas-block-rows) ---------------
+
+# Tiles that are not the default, among them a deep tile at the limit of a
+# block's shared memory at k = 31 (846 + 62 rows x 32 words x 4 B x 2).
+PACKED_TILES = [8, 64, 192, 846]
+GEN_TILES = [8, 100, 384]  # 384: m = 2 at k = 31 is 2 x 2 x 446 x 128 B
+LTL_TILES = [1, 16, 200, 600]  # 200 and 600 opt in past 48 KB
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", PACKED_TILES)
+@pytest.mark.parametrize("k", [1, 10, 31])
+def test_packed_tile_variants_match_plain(tile, k):
+    _need_gpu()
+    before = packed_sweep.packed_sweep.launches
+    for i, shape in enumerate(SHAPES):
+        x = bitpack.words_from_numpy(_words(shape, 100 + i), "cuda")
+        for rule in ("conway", "highlife"):
+            got = packed_sweep.packed_sweep(x, rule, k, tile_rows=tile)
+            plain = packed_sweep.packed_sweep_reference(x, rule, k)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain), (tile, shape, rule, k)
+    assert packed_sweep.packed_sweep.launches == before + 2 * len(SHAPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", GEN_TILES)
+@pytest.mark.parametrize("k", [1, 10, 31])
+def test_gen_tile_variants_match_plain(tile, k):
+    _need_gpu()
+    rng = np.random.default_rng(tile + k)
+    for name in ("wireworld", "brians-brain", "B2/S345/200"):
+        rule = resolve_rule(name)
+        m = bitpack_gen.n_planes(rule.states)
+        if not gen_sweep.tile_fits(m, tile, k):
+            with pytest.raises(ValueError, match="does not fit"):
+                gen_sweep.gen_sweep(torch.zeros((m, 8, 1), dtype=torch.int32, device="cuda"),
+                                    rule, k, tile_rows=tile)
+            continue
+        for shape in SHAPES:
+            x = bitpack_gen.planes_from_numpy(
+                rng.integers(0, 2**32, size=(m, *shape), dtype=np.uint32), "cuda"
+            )
+            got = gen_sweep.gen_sweep(x, rule, k, tile_rows=tile)
+            plain = gen_sweep.gen_sweep_reference(x, rule, k)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain), (tile, shape, name, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", LTL_TILES)
+def test_ltl_tile_variants_match_plain(tile):
+    _need_gpu()
+    rng = np.random.default_rng(tile)
+    for shape in [(1, 1), (3, 5), (37, 19), (64, 300), (1000, 333)]:
+        board = torch.from_numpy((rng.random(shape) < 0.4).astype(np.uint8)).to("cuda")
+        for rule in _ltl_rules():
+            got = ltl_sweep.ltl_sweep(board, rule, tile_rows=tile)
+            plain = ltl_sweep.ltl_sweep_reference(board, rule)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain), (tile, shape, rule)
+
+
+@pytest.mark.cuda
+def test_launchers_refuse_a_tile_past_shared_memory():
+    """The C launchers refuse a depth whose tile does not fit, as the
+    wrappers do before them: nothing is launched."""
+    import ctypes
+
+    _need_gpu()
+    x = bitpack.words_from_numpy(_words((64, 2), 1), "cuda")
+    out = torch.empty_like(x)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    fn = packed_sweep._launcher(packed_sweep.tile_defines(846))
+    assert fn(x.data_ptr(), out.data_ptr(), 64, 2, 31, 8, 12, stream) == 0
+    fn = packed_sweep._launcher(packed_sweep.tile_defines(900))
+    assert fn(x.data_ptr(), out.data_ptr(), 64, 2, 31, 8, 12, stream) != 0
+    assert fn(x.data_ptr(), out.data_ptr(), 64, 2, 4, 8, 12, stream) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["conway", "wireworld", "bugs"])
+def test_simulation_tile_on_card_matches_cpu(rule):
+    _need_gpu()
+    cfg = SimulationConfig(height=96, width=128, rule=rule, seed=5, steps_per_call=10,
+                           kernel="pallas", pallas_block_rows=24, flight_dir="")
+    boards = []
+    for device in ("cuda", "cpu"):
+        sim = Simulation(cfg, observer=BoardObserver(out=io.StringIO()), device=device)
+        assert sim.tile_rows == 24
+        sim.advance(30)
+        boards.append(sim.board_host())
+    assert np.array_equal(*boards)

@@ -50,6 +50,13 @@ def test_parallel_modules_are_covered():
     assert all(parallel / f"{name}.py" in SOURCES for name in names)
 
 
+def test_runtime_modules_are_covered():
+    runtime = PORT / "runtime"
+    names = {p.stem for p in runtime.glob("*.py")}
+    assert {"autotune", "selftest", "profiling", "simulation", "checkpoint"} <= names
+    assert all(runtime / f"{name}.py" in SOURCES for name in names)
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_imports(path):
     for mod in _imported_modules(path):

@@ -251,6 +251,8 @@ def test_checkpoints_resume_across_meshes_and_packages(case, tmp_path, jax_devic
     meshed.advance(mid)
     single, _ = _port(dict(kw, checkpoint_dir=str(tmp_path / "one")), 1)
     single.advance(mid)
+    meshed.flush()  # both packages save on a writer thread
+    single.flush()
     a, b = (CheckpointStore(str(tmp_path / d)).load(keep_packed=True) for d in ("mesh", "one"))
     assert (a.epoch, a.rule, a.meta) == (b.epoch, b.rule, b.meta)
     for x, y in ((a.board, b.board), (a.packed32, b.packed32)):
@@ -287,7 +289,7 @@ def test_mesh_keys_load_from_toml_as_jax_loads_them(tmp_path):
 @pytest.mark.parametrize(
     "key,value",
     [("distributed", True), ("coordinator_address", "localhost:1"),
-     ("num_processes", 2), ("process_id", 0), ("pallas_block_rows", 64)],
+     ("num_processes", 2), ("process_id", 0), ("pallas_vmem_limit_mb", 16)],
 )
 def test_multi_process_and_block_keys_refused_by_name(key, value):
     with pytest.raises(ValueError, match=key):

@@ -145,7 +145,10 @@ def test_headline_config_loads_unchanged():
     assert (cfg.checkpoint_dir, cfg.checkpoint_every) == ("ckpt-65536", 120)
 
 
-@pytest.mark.parametrize("key,value", [("obs_defer", True), ("pallas_block_rows", 64), ("serve_memo", True)])
+@pytest.mark.parametrize(
+    "key,value",
+    [("pallas_vmem_limit_mb", 16), ("pallas_block_rows", 0), ("serve_memo", True)],
+)
 def test_unsupported_keys_raise_by_name(key, value, tmp_path):
     with pytest.raises(ValueError, match=key):
         load_config(None, {key: value})

@@ -219,8 +219,8 @@ def test_cluster_keys_load_like_jax(tmp_path):
     [
         ("serve_cluster", True), ("serve_max_sessions", 4), ("frontend_seeds", "a:1"),
         ("ff_enabled", False), ("num_processes", 2), ("distributed", True),
-        ("obs_defer", True), ("sparse_kernel", True), ("backend", "actor"),
-        ("obs_profile_max_s", 5),
+        ("sparse_threshold", 0.5), ("sparse_kernel", True), ("backend", "actor"),
+        ("pallas_vmem_limit_mb", 8),
     ],
 )
 def test_unported_keys_refused_by_name(key, value):
