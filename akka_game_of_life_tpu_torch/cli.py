@@ -70,6 +70,10 @@ def _add_board(p: argparse.ArgumentParser) -> None:
     p.add_argument("--max-epochs", type=int)
     p.add_argument("--checkpoint-dir")
     p.add_argument("--checkpoint-every", type=int)
+    p.add_argument(
+        "--checkpoint-format", choices=["npz", "orbax"],
+        help="npz (the port's store); orbax is refused by name",
+    )
     p.add_argument("--render-every", type=int)
     p.add_argument(
         "--probe-window",
@@ -99,6 +103,7 @@ def _board_overrides(args: argparse.Namespace) -> dict:
         "max_epochs": args.max_epochs,
         "checkpoint_dir": args.checkpoint_dir,
         "checkpoint_every": args.checkpoint_every,
+        "checkpoint_format": args.checkpoint_format,
         "render_every": args.render_every,
         "probe_window": _parse_window(args.probe_window),
         "metrics_every": args.metrics_every,
@@ -123,11 +128,11 @@ def _parse_mesh(spec):
         raise SystemExit(f"bad --mesh {spec!r}; expected ROWSxCOLS (e.g. 4x2)")
 
 
-def _run_parser(sub) -> argparse.ArgumentParser:
-    p = sub.add_parser("run", help="standalone simulation on one device or a mesh")
-    _add_board(p)
-    _add_observability(p)
-    p.add_argument("--tick", help="wall-clock pacing per chunk (e.g. 200ms); 0 = free-run")
+def _add_stepping(p: argparse.ArgumentParser) -> None:
+    """How ``run`` steps the board.  The JAX package gives the frontend
+    these flags too (its ``_add_common``), which it parses and does not
+    use; the port's frontend does the same, so a JAX command line runs
+    unchanged."""
     p.add_argument(
         "--pallas-block-rows", type=int,
         help="output rows per block of the CUDA kernels under --kernel "
@@ -143,34 +148,11 @@ def _run_parser(sub) -> argparse.ArgumentParser:
         help="block at each checkpoint until the save is durable (default: "
         "saves run on a writer thread while stepping continues)",
     )
-    p.add_argument("--render-max-cells", type=int)
     p.add_argument(
         "--obs-defer", action="store_true", default=None,
         help="dispatch cadence observations on the device and read them one "
         "chunk later, while the next chunk runs (lines appear one chunk "
         "late; values are identical)",
-    )
-    p.add_argument("--obs-programs", choices=["on", "off"], default=None)
-    p.add_argument("--log-file")
-    p.add_argument(
-        "--inject-faults", action="store_true", default=None,
-        help="arm the crash injector (schedule from the config file's "
-        "[fault_injection]); needs --checkpoint-dir",
-    )
-    p.add_argument(
-        "--trace-dir",
-        help="capture a torch.profiler trace of the run into this directory "
-        "(trace.json, Chrome trace-event / Perfetto)",
-    )
-    p.add_argument(
-        "--dump-rle", metavar="PATH",
-        help="write the final board as a Golly/LifeWiki .rle file (O(board) "
-        "host fetch)",
-    )
-    p.add_argument(
-        "--device", type=_run_device, default="cuda",
-        help="cuda (every visible card; a mesh when there are several), "
-        "cuda:N (one card) or cpu",
     )
     p.add_argument(
         "--mesh",
@@ -191,6 +173,66 @@ def _run_parser(sub) -> argparse.ArgumentParser:
         "Larger-than-Life boxes; auto runs dense on widths not a multiple "
         "of 32 and for the LtL diamond); bitpack: the plain packed/plane "
         "step; dense: the plain dense stencil; matmul is not ported yet",
+    )
+
+
+def _add_obs_programs(p: argparse.ArgumentParser) -> None:
+    """The observatory's knobs, as the JAX package gives them to ``run``
+    and ``frontend``."""
+    p.add_argument("--obs-programs", choices=["on", "off"], default=None)
+    p.add_argument(
+        "--obs-cost-interval-s", default=None, metavar="DUR",
+        help="cadence of worker COST frames (default: 5s)",
+    )
+    p.add_argument(
+        "--obs-profile-max-s", default=None, metavar="DUR",
+        help="longest POST /profile capture window; longer requests are "
+        "clamped (default: 30s)",
+    )
+    p.add_argument(
+        "--obs-profile-min-interval-s", default=None, metavar="DUR",
+        help="minimum gap between POST /profile captures; requests inside "
+        "it get HTTP 429 (default: 60s; 0 disables the rate limit)",
+    )
+
+
+def _obs_programs_overrides(args: argparse.Namespace) -> dict:
+    return {
+        "obs_programs": _ON_OFF[args.obs_programs],
+        "obs_cost_interval_s": _duration(args.obs_cost_interval_s),
+        "obs_profile_max_s": _duration(args.obs_profile_max_s),
+        "obs_profile_min_interval_s": _duration(args.obs_profile_min_interval_s),
+    }
+
+
+def _run_parser(sub) -> argparse.ArgumentParser:
+    p = sub.add_parser("run", help="standalone simulation on one device or a mesh")
+    _add_board(p)
+    _add_observability(p)
+    _add_obs_programs(p)
+    _add_stepping(p)
+    p.add_argument("--tick", help="wall-clock pacing per chunk (e.g. 200ms); 0 = free-run")
+    p.add_argument("--render-max-cells", type=int)
+    p.add_argument("--log-file")
+    p.add_argument(
+        "--inject-faults", action="store_true", default=None,
+        help="arm the crash injector (schedule from the config file's "
+        "[fault_injection]); needs --checkpoint-dir",
+    )
+    p.add_argument(
+        "--trace-dir",
+        help="capture a torch.profiler trace of the run into this directory "
+        "(trace.json, Chrome trace-event / Perfetto)",
+    )
+    p.add_argument(
+        "--dump-rle", metavar="PATH",
+        help="write the final board as a Golly/LifeWiki .rle file (O(board) "
+        "host fetch)",
+    )
+    p.add_argument(
+        "--device", type=_run_device, default="cuda",
+        help="cuda (every visible card; a mesh when there are several), "
+        "cuda:N (one card) or cpu",
     )
     return p
 
@@ -229,7 +271,6 @@ def _observability_overrides(args: argparse.Namespace) -> dict:
         "log_events": args.log_events,
         "trace_file": args.trace_file,
         "flight_dir": args.flight_dir,
-        "obs_programs": _ON_OFF[args.obs_programs],
     }
 
 
@@ -272,6 +313,8 @@ def _frontend_parser(sub) -> argparse.ArgumentParser:
     p = sub.add_parser("frontend", help="cluster coordinator")
     _add_board(p)
     _add_observability(p)
+    _add_obs_programs(p)
+    _add_stepping(p)
     p.add_argument("--port", type=int, default=2551)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--wait-for-backends", default=None, help="e.g. 5s")
@@ -289,8 +332,6 @@ def _frontend_parser(sub) -> argparse.ArgumentParser:
     p.add_argument("--render-max-cells", type=int)
     p.add_argument("--log-file")
     p.add_argument("--inject-faults", action="store_true", default=None)
-    p.add_argument("--obs-programs", choices=["on", "off"], default=None)
-    p.add_argument("--obs-cost-interval-s", default=None, metavar="DUR")
     p.add_argument("--sparse-cluster", choices=["on", "off"], default=None)
     p.add_argument("--ring-pack", choices=["on", "off"], default=None)
     p.add_argument("--ring-batch", choices=["on", "off"], default=None)
@@ -317,7 +358,7 @@ def _frontend_overrides(args: argparse.Namespace) -> dict:
         "render_max_cells": args.render_max_cells,
         "log_file": args.log_file,
         **_observability_overrides(args),
-        "obs_cost_interval_s": _duration(args.obs_cost_interval_s),
+        **_obs_programs_overrides(args),
         "sparse_cluster": _ON_OFF[args.sparse_cluster],
         "ring_pack": _ON_OFF[args.ring_pack],
         "ring_batch": _ON_OFF[args.ring_batch],
@@ -400,6 +441,7 @@ def _run_overrides(args: argparse.Namespace) -> dict:
         "checkpoint_async": False if args.checkpoint_sync else None,
         "render_max_cells": args.render_max_cells,
         **_observability_overrides(args),
+        **_obs_programs_overrides(args),
         "obs_defer": args.obs_defer,
         "log_file": args.log_file,
     }

@@ -6,9 +6,10 @@ headers, so a build takes seconds).  Libraries go into ``build/kernels/`` at
 the root of the checkout, named by a hash of the source and the flags, and are
 built at first use: importing this module needs no ``nvcc``.  ``load`` is safe
 across threads (the cluster's in-process workers reach it together at their
-first chunk): one lock serializes the build, and the temporary file is named
-per process and thread, so concurrent builds from other processes do not
-collide either.
+first chunk): one lock per library serializes the builds of the same source
+and flags while different libraries build side by side, and the temporary
+file is named per process and thread, so concurrent builds from other
+processes do not collide either.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -30,7 +31,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-_LOCK = threading.Lock()
+_LOCKS_LOCK = threading.Lock()
+_LOCKS: Dict[Path, threading.Lock] = {}
 
 
 class Built(NamedTuple):
@@ -59,7 +61,9 @@ def load(name: str, defines: Tuple[str, ...] = ()) -> Built:
     key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()
     lib = BUILD_DIR / f"{name}-{key[:16]}.so"
     seconds, log = 0.0, ""
-    with _LOCK:
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(lib, threading.Lock())
+    with lock:
         if not lib.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")

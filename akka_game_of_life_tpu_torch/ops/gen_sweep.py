@@ -34,15 +34,14 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from akka_game_of_life_tpu_torch.ops import bitpack, bitpack_gen
-from akka_game_of_life_tpu_torch.ops.packed_sweep import (
-    MAX_STEPS_PER_SWEEP,
-    SMEM_LIMIT_BYTES,
-    TILE_COLS,
-    plan_sweeps,
-)
+from akka_game_of_life_tpu_torch.ops.packed_sweep import MAX_STEPS_PER_SWEEP, plan_sweeps
 from akka_game_of_life_tpu_torch.ops.rules import Rule, resolve_rule
 
 PLANE_COUNTS = range(2, 9)
+# Shared memory a block may opt into on the H100 (227 KB), and the words of
+# one tile row (30 output words and one halo word a side).
+SMEM_LIMIT_BYTES = 232448
+TILE_COLS = 32
 # The default library's tile: ROW_BUDGET // m output rows of each of m planes
 # (``csrc/gen_sweep.cu``'s kRowBudget).
 ROW_BUDGET = 256

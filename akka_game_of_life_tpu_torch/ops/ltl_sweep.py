@@ -12,12 +12,13 @@ the plain cumsum path of ``ops/ltl.py``).  Mosaic's ``H % block_rows == 0``
 does not bind the CUDA kernel, which wraps rows and columns modulo the
 torus, so any H and W are taken.
 
+The rule reaches the kernel as runs of counts (:func:`rule_ranges`), in a
+small device table the wrapper uploads once per rule and device.
 ``tile_rows`` (the Pallas API's ``block_rows``) picks a compile-time variant:
 ``None`` is the default library (:data:`DEFAULT_TILE_ROWS` output rows per
 block), another value a library built with ``-DTILE_ROWS=<rows>``.  A variant
-computes the same board; only a window that does not fit a block's shared
-memory, or a grid taller than the launch allows (:func:`tile_fits`), is
-refused, with ``ValueError``, on the CPU too.
+computes the same board; only a grid taller than the launch allows
+(:func:`tile_fits`) is refused, with ``ValueError``, on the CPU too.
 """
 
 from __future__ import annotations
@@ -32,43 +33,35 @@ from akka_game_of_life_tpu_torch.ops import ltl
 from akka_game_of_life_tpu_torch.ops.rules import Rule, resolve_rule
 
 MAX_RADIUS = 10
-RULE_WORDS = ((2 * MAX_RADIUS + 1) ** 2 + 31) // 32  # bitset words over 0..440
-# The default library's tile (``csrc/ltl_sweep.cu``): DEFAULT_TILE_ROWS x
-# TILE_COLS output cells per block.
-DEFAULT_TILE_ROWS = 64
-TILE_COLS = 256
-# Dynamic shared memory a block may opt into on the H100 (227 KB), less the
-# kernel's static copy of the rule; and the launch's grid rows.
-SMEM_LIMIT_BYTES = 232448 - 2 * RULE_WORDS * 4
+# The default library's tile (``csrc/ltl_sweep.cu``): DEFAULT_TILE_ROWS
+# output rows by 480 columns per block (one warp: 32 lanes of RUN cells,
+# the outer lane on each side halo).
+DEFAULT_TILE_ROWS = 48
+RUN = 16
+# Rows of blocks a launch's grid may have (``gridDim.y``).
 MAX_GRID_ROWS = 65535
 
 
-def smem_bytes(tile_rows: Optional[int], radius: int) -> int:
-    """Shared memory of one block: the (tile + 2R) x (256 + 2R) window of
-    0/1 bytes and a double row buffer."""
-    rows = DEFAULT_TILE_ROWS if tile_rows is None else tile_rows
-    cols = TILE_COLS + 2 * radius
-    return (rows + 2 * radius) * cols + 2 * cols
+def smem_bytes(radius: int) -> int:
+    """Shared memory of one block: the lanes' ring of the 2R+1 rows in the
+    window, 16 bytes per lane and row (10.5 KB at R = 10, under the 48 KB a
+    block has without an opt-in, at every tile)."""
+    return (2 * radius + 1) * 32 * RUN
 
 
 def tile_fits(tile_rows: Optional[int], radius: int, height: int = 1) -> bool:
     """Does a ``tile_rows`` variant take radius ``radius`` on ``height``
     rows?"""
     rows = DEFAULT_TILE_ROWS if tile_rows is None else tile_rows
-    return (
-        rows >= 1
-        and smem_bytes(tile_rows, radius) <= SMEM_LIMIT_BYTES
-        and -(-height // rows) <= MAX_GRID_ROWS
-    )
+    return rows >= 1 and 1 <= radius <= MAX_RADIUS and -(-height // rows) <= MAX_GRID_ROWS
 
 
 def check_tile(tile_rows: Optional[int], radius: int, height: int = 1) -> None:
     if not tile_fits(tile_rows, radius, height):
         raise ValueError(
             f"tile_rows={tile_rows} does not fit the LtL kernel at R={radius} "
-            f"on {height} rows ({smem_bytes(tile_rows, radius)} B of shared "
-            f"memory, the limit is {SMEM_LIMIT_BYTES}; at most "
-            f"{MAX_GRID_ROWS} tiles down the board)"
+            f"on {height} rows (tiles of >= 1 rows, R in 1..{MAX_RADIUS}, at "
+            f"most {MAX_GRID_ROWS} tiles down the board)"
         )
 
 
@@ -87,17 +80,28 @@ def require_sweep_support(rule: Rule) -> None:
         )
 
 
-def rule_words(rule: Rule) -> Tuple[List[int], List[int]]:
-    """The kernel's rule encoding: birth and survive as bitsets of
-    ``RULE_WORDS`` 32-bit words over the neighbour count."""
+def rule_ranges(rule: Rule) -> List[int]:
+    """The kernel's rule table: the number of birth and of survive runs,
+    then each run's lowest box count and one past its highest.  Box counts
+    include the centre, so a live cell's survive count n reads as n + 1."""
 
-    def bitset(counts) -> List[int]:
-        words = [0] * RULE_WORDS
-        for n in counts:
-            words[n >> 5] |= 1 << (n & 31)
-        return words
+    def runs(counts, shift: int) -> List[int]:
+        out: List[int] = []
+        for n in sorted(counts):
+            if out and out[-1] == n + shift:
+                out[-1] += 1
+            else:
+                out += [n + shift, n + shift + 1]
+        return out
 
-    return bitset(rule.birth), bitset(rule.survive)
+    birth, survive = runs(rule.birth, 0), runs(rule.survive, 1)
+    return [len(birth) // 2, len(survive) // 2, *birth, *survive]
+
+
+@functools.lru_cache(maxsize=None)
+def _ranges_on(rule: Rule, device: torch.device) -> torch.Tensor:
+    """:func:`rule_ranges` on ``device``, uploaded once."""
+    return torch.tensor(rule_ranges(rule), dtype=torch.int32, device=device)
 
 
 def ltl_sweep_reference(board: torch.Tensor, rule) -> torch.Tensor:
@@ -116,13 +120,16 @@ def _library(defines: Tuple[str, ...] = ()):
     lib = _build.load("ltl_sweep", defines).lib
     lib.ltl_sweep_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.ltl_sweep_launch.restype = ctypes.c_int
-    lib.ltl_sweep_rule_words.argtypes = []
-    lib.ltl_sweep_rule_words.restype = ctypes.c_int
-    if lib.ltl_sweep_rule_words() != RULE_WORDS:
-        raise RuntimeError("csrc/ltl_sweep.cu and ops/ltl_sweep.py disagree on the rule bitset")
+    lib.ltl_sweep_tile_rows.argtypes = []
+    lib.ltl_sweep_tile_rows.restype = ctypes.c_int
+    if not defines and lib.ltl_sweep_tile_rows() != DEFAULT_TILE_ROWS:
+        raise RuntimeError(
+            f"csrc/ltl_sweep.cu's default tile is {lib.ltl_sweep_tile_rows()} "
+            f"rows, ops/ltl_sweep.py's {DEFAULT_TILE_ROWS}"
+        )
     return lib
 
 
@@ -141,14 +148,14 @@ def _launch(
         )
     h, w = board.shape
     out = torch.empty_like(board)
-    birth, survive = (
-        (ctypes.c_uint * RULE_WORDS)(*words) for words in rule_words(rule)
-    )
+    # 16-byte loads and stores where every row starts on a 16-byte boundary.
+    aligned = w % 16 == 0 and board.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    ranges = _ranges_on(rule, board.device)
     stream = torch.cuda.current_stream(board.device).cuda_stream
     with torch.cuda.device(board.device):
         rc = _library(defines).ltl_sweep_launch(
-            board.data_ptr(), out.data_ptr(), h, w, rule.radius, birth, survive,
-            stream,
+            board.data_ptr(), out.data_ptr(), h, w, rule.radius,
+            ranges.data_ptr(), int(aligned), stream,
         )
     if rc != 0:
         raise RuntimeError(f"ltl_sweep_launch failed: CUDA error {rc}")
@@ -198,8 +205,7 @@ def ops_per_cell(rule) -> int:
     the operation count of its bound: the box sum as running sums along
     both axes (2 adds along the columns and 2 along the rows, one term in
     and one out each), 1 for the centre and 4 for the rule (word index,
-    shift, mask, live/dead select).  It does not grow with R; the kernel's
-    own row sum, which re-adds 2R+1 terms, does more than this."""
+    shift, mask, live/dead select).  It does not grow with R."""
     rule = resolve_rule(rule)
     require_sweep_support(rule)
     return 9

@@ -14,12 +14,15 @@ bind the CUDA kernel, which wraps every index modulo the torus, so any height
 and any word count work.  The kernel's one halo word per side holds at most
 :data:`MAX_STEPS_PER_SWEEP` generations per sweep.
 
-``tile_rows`` (the Pallas API's ``block_rows``) picks a compile-time variant
-of the kernel: ``None`` is the default library (:data:`DEFAULT_TILE_ROWS`
-output rows per block), another value a library built with
-``-DTILE_ROWS=<rows>``.  A variant computes the same words; only a tile whose
-two shared-memory buffers do not fit a block (:func:`tile_fits`) is refused,
-with ``ValueError``, on the CPU too.
+The kernel is compiled per rule: a library is built with the rule's masks
+(``-DRULE_BIRTH``, ``-DRULE_SURVIVE1``) and its tile, and
+:func:`library_defines` is its key (``_build.load`` hashes the source with
+those flags), so a rule a run names is built at its first launch.
+``tile_rows`` (the Pallas API's ``block_rows``) picks the tile: ``None`` is
+:data:`DEFAULT_TILE_ROWS` output rows per block, another value
+``-DTILE_ROWS=<rows>``.  A variant computes the same words; only a tile
+whose strips would pass the grid's rows of blocks (:func:`tile_fits`) is
+refused, with ``ValueError``, on the CPU too.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import ctypes
 import functools
 import itertools
 import threading
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,17 +39,14 @@ from akka_game_of_life_tpu_torch.ops import bitpack
 from akka_game_of_life_tpu_torch.ops.rules import Rule, resolve_rule
 
 MAX_STEPS_PER_SWEEP = 31
-# Output rows per block of the default library (``csrc/packed_sweep.cu``).
-DEFAULT_TILE_ROWS = 256
-# Shared memory a block may opt into on the H100 (227 KB), and the words of
-# one tile row (30 output words and one halo word a side).
-SMEM_LIMIT_BYTES = 232448
-TILE_COLS = 32
-# Chosen on an H100 (700 W) by the tile sweep of
-# ``python -m akka_game_of_life_tpu_torch.bench`` at 65536² (PERF.md): time
-# per generation falls until k ≈ 6 and is flat (within 4%) from k = 6 to 15
-# with the kernel's 256-row tiles.  k = 10 divides the headline's 60-step
-# chunks.
+# Output rows per block (one warp's strip) of a library built without
+# -DTILE_ROWS (``csrc/packed_sweep.cu``).
+DEFAULT_TILE_ROWS = 192
+# Rows of blocks a launch's grid may have (``gridDim.y``).
+MAX_GRID_ROWS = 65535
+# The best depth of ``tune --steps-per-call 60`` at 65536² on an H100 at
+# 700 W (PERF.md): 1.456 ms per 10 generations at 192-row tiles,
+# within 4% from k = 6 to 12; k = 10 divides the headline's 60-step chunks.
 DEFAULT_STEPS_PER_SWEEP = 10
 # The cluster's in-process workers launch from several threads; the launch
 # count must not lose an increment between them.
@@ -72,35 +72,48 @@ def _check_steps(steps_per_sweep: int) -> int:
     return steps_per_sweep
 
 
-def smem_bytes(tile_rows: Optional[int], steps_per_sweep: int) -> int:
-    """Shared memory of one block: two buffers of (tile + 2k) rows of
-    :data:`TILE_COLS` words."""
+def tile_fits(
+    tile_rows: Optional[int], steps_per_sweep: int, height: int = 1
+) -> bool:
+    """Does a ``tile_rows`` variant take a ``steps_per_sweep``-deep sweep of
+    ``height`` rows?  The kernel keeps every level in registers (no shared
+    memory), so only the depth and the grid's rows of strips bound it."""
     rows = DEFAULT_TILE_ROWS if tile_rows is None else tile_rows
-    return 2 * (rows + 2 * steps_per_sweep) * TILE_COLS * 4
-
-
-def tile_fits(tile_rows: Optional[int], steps_per_sweep: int) -> bool:
-    """Does a ``tile_rows`` variant take a ``steps_per_sweep``-deep sweep?"""
-    return (tile_rows is None or tile_rows >= 1) and (
-        smem_bytes(tile_rows, steps_per_sweep) <= SMEM_LIMIT_BYTES
+    return (
+        rows >= 1
+        and 1 <= steps_per_sweep <= MAX_STEPS_PER_SWEEP
+        and -(-height // rows) <= MAX_GRID_ROWS
     )
 
 
-def check_tile(tile_rows: Optional[int], steps_per_sweep: int) -> None:
-    if not tile_fits(tile_rows, steps_per_sweep):
+def check_tile(tile_rows: Optional[int], steps_per_sweep: int, height: int = 1) -> None:
+    if not tile_fits(tile_rows, steps_per_sweep, height):
         raise ValueError(
-            f"tile_rows={tile_rows} at steps_per_sweep={steps_per_sweep} does "
-            f"not fit a block: {smem_bytes(tile_rows, steps_per_sweep)} B of "
-            f"shared memory, the limit is {SMEM_LIMIT_BYTES}"
+            f"tile_rows={tile_rows} does not fit the packed sweep at "
+            f"steps_per_sweep={steps_per_sweep} on {height} rows (tiles of "
+            f">= 1 rows, 1..{MAX_STEPS_PER_SWEEP} steps, at most "
+            f"{MAX_GRID_ROWS} tiles down the board)"
         )
 
 
 def tile_defines(tile_rows: Optional[int]) -> Tuple[str, ...]:
-    """The ``-D`` flags of a tile variant; the default tile is the default
-    library."""
+    """The ``-D`` flags of a tile; the default tile adds none."""
     if tile_rows is None or tile_rows == DEFAULT_TILE_ROWS:
         return ()
     return (f"-DTILE_ROWS={int(tile_rows)}",)
+
+
+def library_defines(rule, tile_rows: Optional[int] = None) -> Tuple[str, ...]:
+    """The library key of a rule and a tile: its ``-D`` flags, the rule's
+    masks first (:func:`rule_masks`), its combine network
+    (:func:`combine_define`), then the tile's."""
+    birth, survive1 = rule_masks(resolve_rule(rule))
+    return (
+        f"-DRULE_BIRTH={birth:#x}",
+        f"-DRULE_SURVIVE1={survive1:#x}",
+        *combine_define(rule),
+        *tile_defines(tile_rows),
+    )
 
 
 def plan_sweeps(n_steps: int, steps_per_sweep: Optional[int] = None) -> List[int]:
@@ -127,28 +140,47 @@ def packed_sweep_reference(words: torch.Tensor, rule, steps_per_sweep: int) -> t
     return bitpack.packed_multi_step(words, rule, _check_steps(steps_per_sweep))
 
 
+class _Library(NamedTuple):
+    launch: Callable
+    variant: Tuple[int, int, int]  # (birth, survive1, tile rows) built in
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher(defines: Tuple[str, ...] = ()):
-    """The C entry point of ``csrc/packed_sweep.cu``, built at first use;
-    ``defines`` (``-DTILE_ROWS=..``, ``-DSTRIPS=..``) pick a tile variant."""
+def _launcher(defines: Tuple[str, ...]) -> _Library:
+    """The C entry point of ``csrc/packed_sweep.cu`` built with
+    ``defines`` (:func:`library_defines`: a rule and a tile), at first use."""
     from akka_game_of_life_tpu_torch.ops import _build
 
-    fn = _build.load("packed_sweep", defines).lib.packed_sweep_launch
+    lib = _build.load("packed_sweep", defines).lib
+    fn = lib.packed_sweep_launch
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    return fn
+    birth, survive1, tile = ctypes.c_uint(), ctypes.c_uint(), ctypes.c_int()
+    lib.packed_sweep_variant.argtypes = [ctypes.c_void_p] * 3
+    lib.packed_sweep_variant.restype = None
+    lib.packed_sweep_variant(
+        ctypes.byref(birth), ctypes.byref(survive1), ctypes.byref(tile)
+    )
+    if not any(d.startswith("-DTILE_ROWS=") for d in defines) and tile.value != DEFAULT_TILE_ROWS:
+        raise RuntimeError(
+            f"csrc/packed_sweep.cu's default tile is {tile.value} rows, "
+            f"ops/packed_sweep.py's {DEFAULT_TILE_ROWS}"
+        )
+    return _Library(fn, (birth.value, survive1.value, tile.value))
 
 
 def _launch(
     words: torch.Tensor,
     rule: Rule,
     steps_per_sweep: int,
-    defines: Tuple[str, ...] = (),
+    defines: Optional[Tuple[str, ...]] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on a CUDA tensor; raises on anything else."""
+    """Launch the CUDA kernel on a CUDA tensor through the library
+    ``defines`` names (by default the rule's, at the default tile); raises
+    on anything else, and if the library was built for another rule."""
     if words.device.type != "cuda":
         raise ValueError(f"the CUDA sweep needs a CUDA tensor, got {words.device}")
     if words.dtype != bitpack.WORD_DTYPE:
@@ -158,14 +190,20 @@ def _launch(
             f"packed words must be a contiguous (H, W/32) tensor, got "
             f"shape {tuple(words.shape)}"
         )
+    if defines is None:
+        defines = library_defines(rule)
+    library = _launcher(defines)
+    if library.variant[:2] != rule_masks(rule):
+        raise RuntimeError(
+            f"packed sweep library {defines} was built for rule masks "
+            f"{library.variant[:2]}, not {rule}'s {rule_masks(rule)}"
+        )
     h, nw = words.shape
     out = torch.empty_like(words)
-    birth, survive1 = rule_masks(rule)
     stream = torch.cuda.current_stream(words.device).cuda_stream
     with torch.cuda.device(words.device):
-        rc = _launcher(defines)(
-            words.data_ptr(), out.data_ptr(), h, nw, steps_per_sweep,
-            birth, survive1, stream,
+        rc = library.launch(
+            words.data_ptr(), out.data_ptr(), h, nw, steps_per_sweep, stream
         )
     if rc != 0:
         raise RuntimeError(f"packed_sweep_launch failed: CUDA error {rc}")
@@ -182,16 +220,16 @@ def packed_sweep(
     words: torch.Tensor, rule, steps_per_sweep: int, *, tile_rows: Optional[int] = None
 ) -> torch.Tensor:
     """Advance a packed (H, W/32) int32 torus by ``steps_per_sweep``
-    generations in one pass: the CUDA kernel (its ``tile_rows`` variant)
-    for a CUDA tensor, the plain version for a CPU tensor.
+    generations in one pass: the CUDA kernel (the library of the rule and
+    its ``tile_rows`` variant) for a CUDA tensor, the plain version for a CPU tensor.
     ``packed_sweep.launches`` counts kernel launches of every variant."""
     rule = resolve_rule(rule)
     bitpack.require_packed_support(rule)
     _check_steps(steps_per_sweep)
-    check_tile(tile_rows, steps_per_sweep)
+    check_tile(tile_rows, steps_per_sweep, words.shape[0])
     if words.device.type == "cpu":
         return packed_sweep_reference(words, rule, steps_per_sweep)
-    return _launch(words, rule, steps_per_sweep, tile_defines(tile_rows))
+    return _launch(words, rule, steps_per_sweep, library_defines(rule, tile_rows))
 
 
 packed_sweep.launches = 0
@@ -223,38 +261,79 @@ def packed_multi_step_fn(
     return run
 
 
-def _combine_instructions(rule: Rule, count_bits: int) -> int:
+def _combine_network(rule: Rule, count_bits: int) -> Tuple[int, Optional[int]]:
     """Fewest three-input logic instructions (LOP3) that map the low
     ``count_bits`` bits of the 9-cell count and the cell itself to the next
-    state: 0, 1 or 2 by exhaustive search; 3 where two do not suffice, which
-    is then a lower bound."""
+    state, and the network that does it: 0, 1 or 2 by exhaustive search
+    (the network encoded as :func:`library_defines`' ``-DRULE_COMBINE``
+    reads it); 3 where two do not suffice, which is then a lower bound,
+    and no network."""
     survive1 = {n + 1 for n in rule.survive}
     rows = [(t, x) for t in range(10) for x in (0, 1) if x <= t <= 8 + x]
     target = tuple(int(t in (survive1 if x else rule.birth)) for t, x in rows)
     signals = [tuple((t >> i) & 1 for t, _ in rows) for i in range(count_bits)]
     signals.append(tuple(x for _, x in rows))
+    # The kernel's signal numbers: count bits b0..b3 are 0..3, the cell 4.
+    ids = list(range(count_bits)) + [4]
 
-    def fits(cols) -> bool:  # is the target a function of these columns?
+    def table(cols) -> Optional[int]:
+        """The LOP3 table of the target over these columns (first column
+        the table's a), or None where it is no function of them."""
         seen = {}
-        return all(
-            seen.setdefault(key, want) == want
-            for key, want in zip(zip(*cols), target)
-        )
+        for key, want in zip(zip(*cols), target):
+            if seen.setdefault(key, want) != want:
+                return None
+        return sum(want << (4 * a + 2 * b + c) for (a, b, c), want in seen.items())
 
-    if len(set(target)) == 1 or target in signals:
-        return 0
-    trios = list(itertools.combinations(signals, 3))
-    if any(fits(trio) for trio in trios):
-        return 1
-    firsts = {
-        tuple((table >> (4 * a + 2 * b + c)) & 1 for a, b, c in zip(*trio))
-        for trio in trios
-        for table in range(256)
-    }
-    pairs = list(itertools.combinations(signals, 2))
-    if any(fits((first, *pair)) for first in firsts for pair in pairs):
-        return 2
-    return 3
+    def encode(trio, t1, pair=None, t2=0) -> int:
+        i, j, k = trio
+        net = t1 | ids[i] << 8 | ids[j] << 11 | ids[k] << 14
+        if pair is not None:
+            net |= t2 << 17 | ids[pair[0]] << 25 | ids[pair[1]] << 28 | 1 << 31
+        return net
+
+    if len(set(target)) == 1:
+        return 0, encode((0, 1, 2), 0xFF if target[0] else 0x00)
+    if target in signals:
+        return 0, encode((signals.index(target), 0, 1), 0xF0)
+    trios = list(itertools.combinations(range(len(signals)), 3))
+    for trio in trios:
+        t1 = table([signals[i] for i in trio])
+        if t1 is not None:
+            return 1, encode(trio, t1)
+    pairs = list(itertools.combinations(range(len(signals)), 2))
+    for trio in trios:
+        for t1 in range(256):
+            first = tuple(
+                (t1 >> (4 * a + 2 * b + c)) & 1
+                for a, b, c in zip(*(signals[i] for i in trio))
+            )
+            for pair in pairs:
+                t2 = table([first, signals[pair[0]], signals[pair[1]]])
+                if t2 is not None:
+                    return 2, encode(trio, t1, pair, t2)
+    return 3, None
+
+
+def _combine_instructions(rule: Rule, count_bits: int) -> int:
+    return _combine_network(rule, count_bits)[0]
+
+
+def combine_define(rule) -> Tuple[str, ...]:
+    """``-DRULE_COMBINE=..``: the rule's fewest-LOP3 network over the
+    count bits and the cell (two LOP3 for Conway), where one of at most two
+    exists; none for a rule that needs more, whose kernel combines by two
+    lookup tables and a select."""
+    return _combine_define(resolve_rule(rule))
+
+
+@functools.lru_cache(maxsize=None)
+def _combine_define(rule: Rule) -> Tuple[str, ...]:
+    low, net = _combine_network(rule, 3)
+    high, net4 = _combine_network(rule, 4)
+    if net4 is not None and 1 + high < low:  # reading b3 costs one LOP3
+        net = net4
+    return () if net is None else (f"-DRULE_COMBINE={net:#x}",)
 
 
 def ops_per_word_step(rule) -> int:

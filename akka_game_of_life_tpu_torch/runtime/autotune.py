@@ -44,11 +44,11 @@ from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
 # The tiles ``kernel=auto`` (and ``kernel=pallas`` without
 # ``pallas_block_rows``) runs: each kernel's default library, the
 # counterpart of the JAX package's MEASURED_BLOCK_ROWS_CAPS.  Measured by
-# ``chip_smoke.py``'s tune phase on an NVIDIA H100 80GB HBM3 at 700 W
-# (PERF.md, row #8 of the TPU-kernel table): the packed sweep's 256 rows and
-# the plane sweep's 128 rows at m = 2 were the best points of their grids,
-# the LtL step's 64 rows within 1.2% of the best.  Changing one to a tune
-# winner is a measured change of its own.
+# ``tune`` on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, row #8 of the
+# TPU-kernel table): the packed sweep's 192 rows (at 60 generations per
+# call), the LtL step's 48 rows and the plane sweep's 128 rows at m = 2
+# were the best points of their grids.  Changing one to a tune winner is a
+# measured change of its own.
 MEASURED_TILE_ROWS = {
     "packed_sweep": packed_sweep.DEFAULT_TILE_ROWS,
     "gen_sweep": gen_sweep.ROW_BUDGET,  # rows x planes: 128 rows at m = 2
@@ -81,10 +81,10 @@ def feasible(size: int, steps_per_call: int, b: int, k: int, rule="conway") -> b
 
     - ``b >= 1`` and ``1 <= k <= MAX_STEPS_PER_SWEEP`` (31: one halo word a
       side), and k divides ``steps_per_call``;
-    - the tile's shared memory fits a block (227 KB): the packed sweep's two
-      buffers of (b + 2k) rows x 32 words, the plane sweep's m times that;
-    - LtL: one generation per launch (k = 1), the (b + 2R) x (256 + 2R)
-      window fits, and the board is at most 65535 tiles tall.
+    - the plane sweep: its tile's shared memory fits a block (227 KB), m
+      buffers pairs of (b + 2k) rows x 32 words;
+    - the packed sweep (registers only) and LtL (one generation per launch,
+      k = 1): the board is at most 65535 tiles tall.
     """
     rule = resolve_rule(rule)
     if b < 1 or k < 1 or k > packed_sweep.MAX_STEPS_PER_SWEEP:
@@ -96,7 +96,7 @@ def feasible(size: int, steps_per_call: int, b: int, k: int, rule="conway") -> b
         return k == 1 and ltl_sweep.tile_fits(b, rule.radius, size)
     if kernel == "gen_sweep":
         return gen_sweep.tile_fits(bitpack_gen.n_planes(rule.states), b, k)
-    return packed_sweep.tile_fits(b, k)
+    return packed_sweep.tile_fits(b, k, size)
 
 
 def _board(rule, size: int, kernel: str, device: torch.device) -> torch.Tensor:
@@ -137,26 +137,28 @@ def _step_fn(rule, kernel: str, steps_per_call: int, b: int, k: int):
     return ltl_sweep.ltl_multi_step_fn(rule, steps_per_call, tile_rows=b)
 
 
-def variant_defines(kernel: str, b: int):
-    """The ``-D`` flags of a point's library (empty: the default one)."""
-    return {
-        "packed_sweep": packed_sweep.tile_defines,
-        "gen_sweep": gen_sweep.tile_defines,
-        "ltl_sweep": ltl_sweep.tile_defines,
-    }[kernel](b)
+def variant_defines(rule, b: int):
+    """The ``-D`` flags of a point's library: the tile's (none for the
+    default one), after the rule's for the packed sweep, which is built
+    per rule."""
+    kernel = kernel_of(rule)
+    if kernel == "packed_sweep":
+        return packed_sweep.library_defines(rule, b)
+    return {"gen_sweep": gen_sweep.tile_defines, "ltl_sweep": ltl_sweep.tile_defines}[kernel](b)
 
 
-def build_variants(kernel: str, blocks: Sequence[int]) -> dict:
-    """Build every tile variant's library, one ``nvcc`` each, all started
-    together; returns ``{b: Built or the exception}`` (a failed build is
-    that point's error, not the tune's)."""
+def build_variants(rule, blocks: Sequence[int]) -> dict:
+    """Build every tile variant's library for ``rule``, one ``nvcc`` each,
+    all started together; returns ``{b: Built or the exception}`` (a failed
+    build is that point's error, not the tune's)."""
     from akka_game_of_life_tpu_torch.ops import _build
 
+    kernel = kernel_of(rule)
     blocks = sorted(set(blocks))
 
     def build(b):
         try:
-            return _build.load(kernel, variant_defines(kernel, b))
+            return _build.load(kernel, variant_defines(rule, b))
         except Exception as e:  # noqa: BLE001 — recorded per point
             return e
 
@@ -220,7 +222,7 @@ def sweep(
         if feasible(size, steps_per_call, b, k, rule)
     ]
     built = (
-        build_variants(kernel, [b for b, _ in points]) if dev.type == "cuda" else {}
+        build_variants(rule, [b for b, _ in points]) if dev.type == "cuda" else {}
     )
     board = _board(rule, size, kernel, dev)
     results: List[dict] = []

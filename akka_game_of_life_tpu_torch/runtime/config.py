@@ -404,6 +404,8 @@ CLUSTER_FIELDS = tuple(
         "obs_defer", "tick_s", "metrics_file", "metrics_port", "log_events",
         "trace_file", "flight_dir", "obs_programs", "obs_profile_max_s",
         "obs_profile_min_interval_s", "fault_injection", "role",
+        # Read by the cluster only; ``run`` takes it as the JAX run does.
+        "obs_cost_interval_s",
     }
 )
 

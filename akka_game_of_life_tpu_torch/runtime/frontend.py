@@ -167,6 +167,74 @@ def _validate_msg(msg) -> None:
             raise MalformedMessage("tile_state window missing 'window_origin'")
 
 
+class _MemberSender:
+    """One member's outbound lane: a FIFO drained by a writer thread.
+
+    The frontend decides what to send under its lock (the order of an OWNERS
+    broadcast against a late joiner's snapshot, a TICK against a PRUNE), so
+    it enqueues there, in that order, and never writes a socket while it
+    holds the lock: a member that stops reading (a JAX worker reads its
+    control channel on its dispatch thread, which may be deep in a step)
+    then stalls only its own lane, not the lock, the other members' TICKs
+    or the readers.  A send that fails drops the member, off the lock."""
+
+    def __init__(self, member: Member, on_lost) -> None:
+        self._member = member
+        self._on_lost = on_lost
+        self._cond = threading.Condition()
+        self._items: Deque[dict] = deque()
+        self._busy = False
+        self._closed = False
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name=f"member-send-{member.name}"
+        )
+        self._thread.start()
+
+    def send(self, msg: dict) -> None:
+        with self._cond:
+            if not self._closed:
+                self._items.append(msg)
+                self._cond.notify_all()
+
+    def close(self) -> None:
+        """Drop what is queued; the writer ends after its current send."""
+        with self._cond:
+            self._closed = True
+            self._items.clear()
+            self._cond.notify_all()
+
+    def flush(self, deadline: float) -> bool:
+        """Wait until everything queued is written, or ``deadline``
+        (monotonic seconds) passes; True if the lane is empty."""
+        with self._cond:
+            while (self._items or self._busy) and not self._closed:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._cond.wait(left)
+            return not self._items
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                while not self._items and not self._closed:
+                    self._cond.wait()
+                if self._closed:
+                    return
+                msg = self._items.popleft()
+                self._busy = True
+            try:
+                self._member.channel.send(msg)
+            except OSError:
+                self.close()
+                self._on_lost(self._member.name)
+                return
+            finally:
+                with self._cond:
+                    self._busy = False
+                    self._cond.notify_all()
+
+
 class Frontend:
     """Coordinator state machine.  Thread layout: one acceptor, one reader
     thread per worker connection, one maintenance thread (ticks, heartbeat
@@ -414,6 +482,9 @@ class Frontend:
         self.error: Optional[str] = None
 
         self._lock = threading.RLock()
+        # Each member's writer (:class:`_MemberSender`), by ``id(member)``.
+        self._senders: Dict[int, _MemberSender] = {}
+        self._senders_lock = threading.Lock()
         self._started = threading.Event()
         self.done = threading.Event()
         self._stop = threading.Event()
@@ -486,18 +557,16 @@ class Frontend:
     def _cluster_profile(self, seconds: Optional[float]) -> dict:
         """POST /profile: capture locally first (the rate limiter lives
         here, one knob for the whole cluster), then fan the same window to
-        every live worker, fire and forget."""
+        every live worker, fire and forget: ``queued`` names the members
+        whose writer took the request, not ones it has reached."""
         result = self._profiler.capture(seconds)
         if not result.get("ok"):
             return result
-        fanned = []
+        queued = []
         for m in self.membership.alive_members():
-            try:
-                m.channel.send({"type": P.PROFILE, "seconds": result["seconds"]})
-                fanned.append(m.name)
-            except OSError:
-                pass
-        result["members"] = sorted(fanned)
+            if self._safe_send(m, {"type": P.PROFILE, "seconds": result["seconds"]}):
+                queued.append(m.name)
+        result["queued"] = sorted(queued)
         return result
 
     def _io_loop(self) -> None:
@@ -818,19 +887,37 @@ class Frontend:
         ):
             self._safe_send(member, msg)
 
-    def _safe_send(self, member: Member, msg: dict) -> None:
-        try:
-            member.channel.send(msg)
-        except OSError:
-            self._on_member_lost(member.name)
+    def _sender(self, member: Member) -> Optional[_MemberSender]:
+        """The member's writer, made at its first send; None once the
+        member is lost.  ``_on_member_lost`` marks the member dead under
+        the same lock, so a lost member never gets a new writer."""
+        with self._senders_lock:
+            sender = self._senders.get(id(member))
+            if sender is None and member.alive:
+                sender = _MemberSender(member, self._on_member_lost)
+                self._senders[id(member)] = sender
+            return sender
+
+    def _safe_send(self, member: Member, msg: dict) -> bool:
+        """Queue ``msg`` on the member's writer: safe under the lock, in
+        the order of the calls; a failed write drops the member.  False if
+        the member was already lost."""
+        sender = self._sender(member)
+        if sender is not None:
+            sender.send(msg)
+        return sender is not None
 
     def stop(self) -> None:
         self._stop.set()
-        for m in self.membership.alive_members():
-            try:
-                m.channel.send({"type": P.SHUTDOWN})
-            except OSError:
-                pass
+        members = self.membership.alive_members()
+        for m in members:
+            self._safe_send(m, {"type": P.SHUTDOWN})
+        # Bounded: a member that does not read costs 2 s, not the shutdown.
+        deadline = time.monotonic() + 2.0
+        for m in members:
+            sender = self._sender(m)
+            if sender is not None:
+                sender.flush(deadline)
         if self.config.trace_file:
             # Drain the workers' final P.SPANS batches before the export
             # below: each worker flushes its pending spans on SHUTDOWN
@@ -977,7 +1064,8 @@ class Frontend:
             if isinstance(channel, ChaosChannel):
                 channel.dst = member.name
                 self.netchaos.register_node(member.name)
-            channel.send(
+            self._safe_send(
+                member,
                 {
                     "type": P.WELCOME,
                     "name": member.name,
@@ -1015,7 +1103,7 @@ class Frontend:
                         "max_s": self.config.obs_profile_max_s,
                         "min_interval_s": self.config.obs_profile_min_interval_s,
                     },
-                }
+                },
             )
             engine = hello.get("engine", "?")
             detail = (
@@ -1038,7 +1126,7 @@ class Frontend:
                     # and is a valid migration destination from this
                     # moment) and hosts no tiles until the rebalancer
                     # migrates load onto it.  Scale-out is exactly this
-                    # plus a migration.  Sent UNDER the lock, like every
+                    # plus a migration.  Queued UNDER the lock, like every
                     # _broadcast_owners_locked call site: a migration committing
                     # concurrently must not slot its OWNERS broadcast
                     # between this snapshot and its send — the stale
@@ -1650,7 +1738,9 @@ class Frontend:
     # -- failure handling / redeployment -------------------------------------
 
     def _on_member_lost(self, name: str) -> None:
-        member = self.membership.mark_dead(name)
+        with self._senders_lock:
+            member = self.membership.mark_dead(name)
+            sender = None if member is None else self._senders.pop(id(member), None)
         if member is None:
             return
         self._m_lost.inc()
@@ -1658,6 +1748,8 @@ class Frontend:
         self.events.emit(
             "member_lost", member=name, tiles=len(member.tiles)
         )
+        if sender is not None:
+            sender.close()
         try:
             member.channel.close()
         except OSError:

@@ -479,15 +479,15 @@ class Simulation:
         return "sweep" if rule.is_binary else "gen_sweep"
 
     def _check_tile(self) -> None:
-        """Refuse a ``pallas_block_rows`` tile the kernel cannot take (its
-        shared memory at the deepest sweep a chunk plans), before any board
-        is placed."""
+        """Refuse a ``pallas_block_rows`` tile the kernel cannot take (the
+        plane sweep's shared memory at the deepest sweep a chunk plans; the
+        grid's rows of tiles), before any board is placed."""
         if self.tile_rows is None:
             return
         cfg = self.config
         k = min(cfg.steps_per_call, packed_sweep.DEFAULT_STEPS_PER_SWEEP)
         if self.kernel == "sweep":
-            packed_sweep.check_tile(self.tile_rows, k)
+            packed_sweep.check_tile(self.tile_rows, k, cfg.height)
         elif self.kernel == "gen_sweep":
             m = bitpack_gen.n_planes(self.rule.states)
             gen_sweep.check_tile(m, self.tile_rows, k)

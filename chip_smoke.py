@@ -47,9 +47,9 @@ paths through its CLI:
   share and the top device operations, read from the trace).
 
 The single-device runs name ``cuda:0``, so they stay on one card on a
-machine with several.  Then it times each kernel at its main-path shape,
-the mesh's halo exchange and per-tile sweeps, and the worker's chunk engine
-step by step at the cluster's slab.  Each phase prints one
+machine with several.  Then it times each kernel at its main-path shape
+(beside the previous design's time), the mesh's halo exchange and per-tile
+sweeps, and the worker's chunk engine step by step at the cluster's slab.  Each phase prints one
 JSON line; the ``kernels`` line and the card's name and power limit come
 before the last line, which is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero; without CUDA, or without the
@@ -93,7 +93,14 @@ SELFTEST_DEVICE = "cuda"  # every visible card: ``sharded`` needs two
 
 RULES = ["conway", "highlife", "day-and-night", "seeds", "life-without-death"]
 SMALL_SHAPES = [(1, 1), (3, 1), (37, 3), (64, 2), (1000, 33)]
+# The packed sweep's ragged shapes: H < 2k at the deepest sweeps, the
+# worker's 8212 x 513-word slab, and word counts a warp's span (62 words
+# at k <= 12, 30 deeper) plus or minus one.
+PACKED_RAGGED = [(5, 61), (9, 62), (13, 63), (40, 29), (33, 30), (17, 31), (8212, 513)]
 FULL_SHAPE = (65536, 2048)
+# The previous designs' times on an H100 80GB HBM3 at 700 W (PERF.md rows
+# 2 and 5), printed as ``pr5_ms`` beside this run's.
+PREVIOUS_MS = {"packed_sweep": 8.9694, "ltl_sweep": 1.2457}
 REFERENCE_SIDE = 256  # gliders cross no edge of a 256² board in 240 epochs
 
 # The plane sweep: m = 2 (Brian's Brain, Star Wars, WireWorld), 3 (B2/S/7)
@@ -106,6 +113,9 @@ WIREWORLD_REFERENCE_SIDE = 32  # the clock never leaves its loop
 
 # The LtL step: radii 1, 2, 5 (bugs) and 10, and a sparse count set.
 LTL_SHAPES = [(1, 1), (3, 5), (37, 19), (64, 300), (1000, 333)]
+# Ragged: W < 2R+1 and W a lane's 16-cell run x 256 plus or minus one, at
+# every radius 1..10.
+LTL_RAGGED = [(41, 7), (70, 4095), (37, 4096), (29, 4097)]
 LTL_FULL_SHAPE = (16384, 16384)
 LTL_RUN = [
     "--rule", "bugs", "--height", "16384", "--width", "16384", "--seed", "0",
@@ -184,25 +194,29 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def ltl_band(r):
+    """A box LtL rule at radius r with thresholds that keep soups alive."""
+    from akka_game_of_life_tpu_torch.ops.rules import Rule
+
+    top = (2 * r + 1) ** 2 - 1
+    lo = r * (r + 1)
+    return Rule(
+        frozenset(n for n in range(lo, lo + 8) if n <= top),
+        frozenset(n for n in range(max(0, lo - 2), lo + 11) if n <= top),
+        radius=r, kind="ltl", name=f"band-r{r}",
+    )
+
+
 def ltl_rules():
     """Box LtL rules at R = 1, 2, 5, 10 with thresholds that keep soups
     alive, bugs, and a count set of several runs."""
     from akka_game_of_life_tpu_torch.ops.rules import Rule, resolve_rule
 
-    def band(r):
-        top = (2 * r + 1) ** 2 - 1
-        lo = r * (r + 1)
-        return Rule(
-            frozenset(n for n in range(lo, lo + 8) if n <= top),
-            frozenset(n for n in range(max(0, lo - 2), lo + 11) if n <= top),
-            radius=r, kind="ltl", name=f"band-r{r}",
-        )
-
     sparse = Rule(
         frozenset({3, 4, 5, 9}), frozenset({2, 3, 8}), radius=2, kind="ltl",
         name="sparse-r2",
     )
-    return [band(1), band(2), resolve_rule("bugs"), band(10), sparse]
+    return [ltl_band(1), ltl_band(2), resolve_rule("bugs"), ltl_band(10), sparse]
 
 
 def run_cli(argv, log_name: str):
@@ -300,16 +314,21 @@ def tune_libraries():
     for rule, grid in TUNE_RUNS.items():
         kernel = autotune.kernel_of(rule)
         for b in grid["blocks"]:
-            libs.add((kernel, autotune.variant_defines(kernel, b)))
+            libs.add((kernel, autotune.variant_defines(rule, b)))
     return sorted(libs)
 
 
 def build_all(card):
-    """Each kernel's library and every tile variant of the tune phase,
-    built from its source by one nvcc each, all started together."""
-    from akka_game_of_life_tpu_torch.ops import _build
+    """Each kernel's library (the packed sweep's for every rule it is held
+    at) and every tile variant of the tune phase, built from its source by
+    one nvcc each, all started together."""
+    from akka_game_of_life_tpu_torch.ops import _build, packed_sweep
 
-    libs = sorted({(name, ()) for name in KERNELS} | set(tune_libraries()))
+    libs = sorted(
+        {("gen_sweep", ()), ("ltl_sweep", ())}
+        | {("packed_sweep", packed_sweep.library_defines(rule)) for rule in RULES}
+        | set(tune_libraries())
+    )
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         built = dict(zip(libs, pool.map(lambda lib: _build.load(*lib), libs)))
     (OUT / "nvcc.log").write_text(
@@ -326,14 +345,15 @@ def build_all(card):
 
 
 def check_packed_sweep(errors, rng):
-    """PR 1's checks: 6 shapes x 5 rules x 4 depths; returns the full-size
-    words for the timing phase."""
+    """13 shapes (the ragged ones included) x 5 rules x 4 depths, each
+    rule through its own library; returns the full-size words for the
+    timing phase."""
     import numpy as np
 
     from akka_game_of_life_tpu_torch.ops import bitpack, packed_sweep
 
     depths = sorted({1, 7, packed_sweep.DEFAULT_STEPS_PER_SWEEP, packed_sweep.MAX_STEPS_PER_SWEEP})
-    for shape in SMALL_SHAPES + [FULL_SHAPE]:
+    for shape in SMALL_SHAPES + PACKED_RAGGED + [FULL_SHAPE]:
         x = bitpack.words_from_numpy(
             rng.integers(0, 2**32, size=shape, dtype=np.uint32), "cuda"
         )
@@ -349,7 +369,7 @@ def check_packed_sweep(errors, rng):
         "kernel_vs_plain", kernel="packed_sweep",
         replaces="akka_game_of_life_tpu/ops/pallas_stencil.py:236",
         check_launches=errors.checks["packed_sweep"],
-        shapes=SMALL_SHAPES + [FULL_SHAPE], rules=RULES, depths=depths,
+        shapes=SMALL_SHAPES + PACKED_RAGGED + [FULL_SHAPE], rules=RULES, depths=depths,
         max_abs_err=errors.max["packed_sweep"],
     )
     return x
@@ -426,40 +446,56 @@ def check_gen_sweep(errors, rng, card):
 
 def check_ltl_sweep(errors, rng, card):
     """The LtL step on random 0/1 boards at small ragged shapes and at
-    16384² for every radius and count set; then the launcher's refusal of
-    R = 11.  Returns the full-size board for the timing phase."""
+    16384² for every count set; at the ragged widths (W < 2R+1, a lane's
+    run x 256 +- 1) for every radius 1..10, once with cells of other states
+    (2, 255) among them; then the launcher's refusals (R = 11, a 16-byte
+    path for a width that is not a multiple of 16).  Returns the full-size
+    board for the timing phase."""
     import ctypes
 
     import numpy as np
     import torch
 
     from akka_game_of_life_tpu_torch.ops import ltl_sweep
+    from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
 
-    rules = ltl_rules()
-    for shape in LTL_SHAPES + [LTL_FULL_SHAPE]:
-        board = torch.from_numpy(
-            (rng.random(shape, dtype=np.float32) < 0.4).astype(np.uint8)
-        ).to("cuda")
+    def hold(board, rules):
         for rule in rules:
             errors.hold(
                 "ltl_sweep", ltl_sweep.ltl_sweep(board, rule),
                 ltl_sweep.ltl_sweep_reference(board, rule),
-                f"{shape} {rule.name} R={rule.radius}",
+                f"{tuple(board.shape)} {rule.name} R={rule.radius}",
             )
             torch.cuda.empty_cache()
-    birth, survive = ((ctypes.c_uint * ltl_sweep.RULE_WORDS)() for _ in range(2))
+
+    rules = ltl_rules()
+    every_radius = [ltl_band(r) for r in range(1, 11)] + rules[2:3] + rules[4:]
+    for shape in LTL_SHAPES + LTL_RAGGED + [LTL_FULL_SHAPE]:
+        board = torch.from_numpy(
+            (rng.random(shape, dtype=np.float32) < 0.4).astype(np.uint8)
+        ).to("cuda")
+        hold(board, every_radius if shape in LTL_RAGGED else rules)
+    states = rng.choice(np.array([0, 1, 2, 255], np.uint8), size=LTL_RAGGED[2], p=[0.5, 0.4, 0.05, 0.05])
+    hold(torch.from_numpy(states).to("cuda"), every_radius)
+    board = torch.from_numpy(
+        (rng.random(LTL_FULL_SHAPE, dtype=np.float32) < 0.4).astype(np.uint8)
+    ).to("cuda")
     out = torch.empty_like(board)
-    rc = ltl_sweep._library().ltl_sweep_launch(
-        board.data_ptr(), out.data_ptr(), *LTL_FULL_SHAPE, 11, birth, survive,
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
-    )
-    check(rc != 0, "ltl_sweep launcher accepted R = 11")
+    ranges = ltl_sweep._ranges_on(resolve_rule("bugs"), board.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    launch = ltl_sweep._library().ltl_sweep_launch
+    refused = [
+        launch(board.data_ptr(), out.data_ptr(), *LTL_FULL_SHAPE, 11, ranges.data_ptr(), 1, stream),
+        launch(board.data_ptr(), out.data_ptr(), 16384, 16383, 5, ranges.data_ptr(), 1, stream),
+    ]
+    check(all(rc != 0 for rc in refused), f"ltl_sweep launcher accepted bad arguments: {refused}")
     emit(
         "kernel_vs_plain", kernel="ltl_sweep",
         replaces="akka_game_of_life_tpu/ops/pallas_ltl.py:66",
         check_launches=errors.checks["ltl_sweep"],
-        shapes=LTL_SHAPES + [LTL_FULL_SHAPE],
-        rules=[r.rulestring() for r in rules], refused_code=rc,
+        shapes=LTL_SHAPES + LTL_RAGGED + [LTL_FULL_SHAPE],
+        rules=[r.rulestring() for r in rules],
+        ragged_radii=list(range(1, 11)), refused_codes=refused,
         max_abs_err=errors.max["ltl_sweep"], card=card["name_power"],
     )
     return board
@@ -704,7 +740,7 @@ def tuned_headline(tune, headline, tmp: Path, card):
     defines = []
     real = packed_sweep._launch
 
-    def spy(words, rule, k, variant=()):
+    def spy(words, rule, k, variant=None):
         defines.append(variant)
         return real(words, rule, k, variant)
 
@@ -721,7 +757,8 @@ def tuned_headline(tune, headline, tmp: Path, card):
         packed_sweep._launch = real
     counts = read_counts()
     check(counts["packed_sweep"] == headline["sweeps"], f"tuned headline launches {counts}")
-    check(set(defines) == {packed_sweep.tile_defines(b)}, f"tuned headline variants {set(defines)}")
+    check(set(defines) == {packed_sweep.library_defines("conway", b)},
+          f"tuned headline variants {set(defines)}")
     metrics, windows = parse_run(text)
     check(metrics == headline["metrics"], "tuned headline digests differ from the default tile's")
     check(windows == headline["windows"], "tuned headline windows differ")
@@ -1574,6 +1611,7 @@ def timings(card, words, gen_planes, ltl_board):
     out["packed_sweep"] = (ms, plain, bound)
     emit("timing", kernel="packed_sweep", shape=FULL_SHAPE, k=k, rule="conway",
          ms_per_sweep=ms, cell_updates_per_s=h * nw * 32 * k / (ms / 1e3),
+         pr5_ms=PREVIOUS_MS["packed_sweep"],
          plain_ms=plain, **bound, share_of_bound=bound["bound_ms"] / ms,
          library_ms=None, library_note="no single PyTorch call computes this packed step",
          card=card["name_power"])
@@ -1603,6 +1641,7 @@ def timings(card, words, gen_planes, ltl_board):
     emit("timing", kernel="ltl_sweep", shape=[h, w], rule="bugs",
          ops_per_cell=ltl_sweep.ops_per_cell(bugs),
          ms_per_generation=ms, cell_updates_per_s=h * w / (ms / 1e3),
+         pr5_ms=PREVIOUS_MS["ltl_sweep"],
          plain_ms=plain, **bound, share_of_bound=bound["bound_ms"] / ms,
          library_ms=None,
          library_note="no single PyTorch call computes this step (a box filter "

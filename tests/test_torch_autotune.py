@@ -29,12 +29,12 @@ def _records(text):
 @pytest.mark.parametrize(
     "args",
     [(128, 4, 8, 0), (128, 4, 0, 1), (128, 4, -8, 1), (128, 4, 8, 32),
-     (128, 4, 8, 3), (128, 64, 901, 4)],
+     (128, 4, 8, 3), (131072, 64, 1, 4)],
 )
 def test_feasible_guards(args):
     """k = 0 and b = 0 are refused (no divide by zero), k past the 31-step
-    halo, k not dividing the chunk, and a tile whose two buffers pass the
-    227 KB a block may use ((901 + 2*4) rows x 128 B x 2)."""
+    halo, k not dividing the chunk, and a tile too short for the grid's
+    65535 rows of blocks (131072 one-row tiles)."""
     assert not ttune.feasible(*args)
 
 
@@ -42,9 +42,11 @@ def test_feasible_accepts_what_the_kernels_take():
     assert ttune.feasible(128, 4, 8, 4)
     assert ttune.feasible(128, 4, 12, 1)  # no 8-row rule
     assert ttune.feasible(100, 4, 24, 2)  # no size % b rule (the sweep wraps)
-    big = (packed_sweep.SMEM_LIMIT_BYTES // (2 * 32 * 4)) - 2 * 31
-    assert ttune.feasible(65536, 62, big, 31)
-    assert not ttune.feasible(65536, 62, big + 1, 31)
+    # Registers, not shared memory: any tile height at any depth, as long as
+    # the board is at most 65535 tiles tall.
+    assert ttune.feasible(65536, 62, 4096, 31)
+    assert ttune.feasible(65536, 62, 2, 31)
+    assert not ttune.feasible(65536, 62, 1, 31)
 
 
 def test_feasible_per_kernel_shared_memory():
@@ -52,11 +54,13 @@ def test_feasible_per_kernel_shared_memory():
     assert ttune.feasible(64, 20, 400, 20, "wireworld")
     assert not ttune.feasible(64, 20, 420, 20, "wireworld")
     assert gen_sweep.tile_fits(8, None, 31)  # the default tile at the deepest sweep
-    # LtL: one generation per launch, the (b + 2R) x (256 + 2R) window.
+    # LtL: one generation per launch; its ring fits at any tile, so only the
+    # grid's rows of tiles bound it.
     assert ttune.feasible(64, 2, 16, 1, "bugs")
     assert not ttune.feasible(64, 2, 16, 2, "bugs")
     assert ttune.feasible(64, 2, 700, 1, "bugs")
-    assert not ttune.feasible(64, 2, 900, 1, "bugs")
+    assert ttune.feasible(64, 2, 900, 1, "bugs")
+    assert not ttune.feasible(131072, 2, 1, 1, "bugs")
     assert not ltl_sweep.tile_fits(1, 5, 65536 * 2)  # too many tiles down the board
 
 
@@ -209,7 +213,7 @@ def test_tune_defaults_to_the_card(monkeypatch):
 
 def test_measured_tiles_are_the_kernels_defaults():
     assert ttune.MEASURED_TILE_ROWS == {
-        "packed_sweep": 256, "gen_sweep": 256, "ltl_sweep": 64,
+        "packed_sweep": 192, "gen_sweep": 256, "ltl_sweep": 48,
     }
     assert ttune.default_tile_rows("conway") == packed_sweep.DEFAULT_TILE_ROWS
     assert ttune.default_tile_rows("wireworld") == gen_sweep.default_tile_rows(2) == 128

@@ -54,6 +54,57 @@ def test_kernel_matches_plain(shape, k):
         assert torch.equal(got, plain), (shape, rule, k)
 
 
+# Every binary rule of the catalogue, each through its own library.
+BINARY_RULES = ["conway", "highlife", "day-and-night", "seeds", "life-without-death",
+                "fredkin", "replicator", "B0378/S1268"]
+# (1, 1), (3, 1), H < 2k at the deepest sweeps, the worker's slab, and word
+# counts a warp's span (62 words at k <= 12, 30 deeper) plus or minus one.
+RAGGED = [(1, 1), (3, 1), (5, 61), (9, 62), (13, 63), (40, 29), (33, 30), (17, 31), (8212, 513)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def libraries():
+    """Every library this module launches, built side by side (one nvcc
+    each) before its first test; nothing without a card."""
+    import concurrent.futures
+
+    from akka_game_of_life_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        return
+    libs = {("gen_sweep", ()), ("ltl_sweep", ())}
+    libs |= {("packed_sweep", packed_sweep.library_defines(r)) for r in BINARY_RULES}
+    libs |= {("packed_sweep", packed_sweep.library_defines(r, t))
+             for r in TILE_RULES for t in PACKED_TILES}
+    libs |= {("gen_sweep", gen_sweep.tile_defines(t)) for t in GEN_TILES}
+    libs |= {("ltl_sweep", ltl_sweep.tile_defines(t)) for t in LTL_TILES}
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: _build.load(*lib), sorted(libs)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", BINARY_RULES)
+def test_every_rule_every_depth_at_ragged_shapes(rule):
+    _need_gpu()
+    before = packed_sweep.packed_sweep.launches
+    for i, shape in enumerate(RAGGED):
+        x = bitpack.words_from_numpy(_words(shape, 200 + i), "cuda")
+        for k in range(1, packed_sweep.MAX_STEPS_PER_SWEEP + 1):
+            got = packed_sweep.packed_sweep(x, rule, k)
+            plain = packed_sweep.packed_sweep_reference(x, rule, k)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain), (rule, shape, k)
+    assert packed_sweep.packed_sweep.launches == before + len(RAGGED) * packed_sweep.MAX_STEPS_PER_SWEEP
+
+
+@pytest.mark.cuda
+def test_a_library_refuses_another_rule():
+    _need_gpu()
+    x = bitpack.words_from_numpy(_words((8, 4), 0), "cuda")
+    with pytest.raises(RuntimeError, match="built for rule masks"):
+        packed_sweep._launch(x, resolve_rule("highlife"), 2, packed_sweep.library_defines("conway"))
+
+
 @pytest.mark.cuda
 def test_launch_rejects_bad_tensors():
     _need_gpu()
@@ -109,18 +160,19 @@ def test_gen_kernel_matches_plain(shape, rule):
         assert torch.equal(got, plain), (shape, rule, k)
 
 
-def _ltl_rules():
-    def band(r):
-        top = (2 * r + 1) ** 2 - 1
-        lo = r * (r + 1)
-        return Rule(
-            frozenset(n for n in range(lo, lo + 8) if n <= top),
-            frozenset(n for n in range(max(0, lo - 2), lo + 11) if n <= top),
-            radius=r, kind="ltl",
-        )
+def _ltl_band(r):
+    top = (2 * r + 1) ** 2 - 1
+    lo = r * (r + 1)
+    return Rule(
+        frozenset(n for n in range(lo, lo + 8) if n <= top),
+        frozenset(n for n in range(max(0, lo - 2), lo + 11) if n <= top),
+        radius=r, kind="ltl",
+    )
 
+
+def _ltl_rules():
     sparse = Rule(frozenset({3, 4, 5, 9}), frozenset({2, 3, 8}), radius=2, kind="ltl")
-    return [band(1), band(2), resolve_rule("bugs"), band(10), sparse]
+    return [_ltl_band(1), _ltl_band(2), resolve_rule("bugs"), _ltl_band(10), sparse]
 
 
 @pytest.mark.cuda
@@ -136,6 +188,29 @@ def test_ltl_kernel_matches_plain(shape):
         torch.cuda.synchronize()
         assert ltl_sweep.ltl_sweep.launches == before + 1
         assert torch.equal(got, plain), (shape, rule)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", range(1, ltl_sweep.MAX_RADIUS + 1))
+def test_ltl_every_radius_at_ragged_widths(radius):
+    """W < 2R+1, and W a lane's 16-cell run x 256 plus or minus one (the
+    16-byte path and the byte path); one board holds cells of other states
+    (2, 255), which count as dead."""
+    _need_gpu()
+    rng = np.random.default_rng(radius)
+    rules = [_ltl_band(radius),
+             Rule(frozenset(range(0, (2 * radius + 1) ** 2, 3)),
+                  frozenset(range(1, (2 * radius + 1) ** 2, 2)), radius=radius, kind="ltl")]
+    boards = [(rng.random(shape) < 0.4).astype(np.uint8)
+              for shape in [(9, 3), (41, 2 * radius), (70, 4095), (37, 4096), (29, 4097)]]
+    boards.append(rng.choice(np.array([0, 1, 2, 255], np.uint8), size=(23, 4096), p=[0.5, 0.4, 0.05, 0.05]))
+    for host in boards:
+        board = torch.from_numpy(host).to("cuda")
+        for rule in rules:
+            got = ltl_sweep.ltl_sweep(board, rule)
+            plain = ltl_sweep.ltl_sweep_reference(board, rule)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain), (radius, host.shape, rule)
 
 
 @pytest.mark.cuda
@@ -212,9 +287,10 @@ def test_worker_chunk_full_slab_matches_plain():
 
 @pytest.mark.cuda
 def test_deepest_sweep_on_every_card():
-    """Both sweeps opt into more than 48 KB of shared memory on each card
-    they launch on (the opt-in applies to one device): a k = 31 sweep, which
-    needs it, runs on every visible card."""
+    """The plane sweep opts into more than 48 KB of shared memory on each
+    card it launches on (the opt-in applies to one device): a k = 31 sweep,
+    which needs it, runs on every visible card; the packed sweep, which
+    keeps its levels in registers, beside it."""
     _need_gpu()
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two or more NVIDIA GPUs")
@@ -294,27 +370,29 @@ def test_meshed_simulation_on_card_matches_cpu(rule):
 
 # -- tile variants (runtime/autotune.py, run --pallas-block-rows) ---------------
 
-# Tiles that are not the default, among them a deep tile at the limit of a
-# block's shared memory at k = 31 (846 + 62 rows x 32 words x 4 B x 2).
-PACKED_TILES = [8, 64, 192, 846]
+# Every tile of the tune grids (chip_smoke.py's TUNE_RUNS) and a few others.
+PACKED_TILES = [1, 8, 64, 128, 192, 256, 846]
+# At every packed tile, one library per rule and tile: Conway and HighLife
+# (each its own combine network) and Day & Night (the lookup-table combine).
+TILE_RULES = ["conway", "highlife", "day-and-night"]
 GEN_TILES = [8, 100, 384]  # 384: m = 2 at k = 31 is 2 x 2 x 446 x 128 B
-LTL_TILES = [1, 16, 200, 600]  # 200 and 600 opt in past 48 KB
+LTL_TILES = [1, 16, 32, 64, 128, 200, 600]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile", PACKED_TILES)
-@pytest.mark.parametrize("k", [1, 10, 31])
+@pytest.mark.parametrize("k", [1, 4, 8, 10, 16, 31])
 def test_packed_tile_variants_match_plain(tile, k):
     _need_gpu()
     before = packed_sweep.packed_sweep.launches
-    for i, shape in enumerate(SHAPES):
-        x = bitpack.words_from_numpy(_words(shape, 100 + i), "cuda")
-        for rule in ("conway", "highlife"):
+    for rule in TILE_RULES:
+        for i, shape in enumerate(SHAPES):
+            x = bitpack.words_from_numpy(_words(shape, 100 + i), "cuda")
             got = packed_sweep.packed_sweep(x, rule, k, tile_rows=tile)
             plain = packed_sweep.packed_sweep_reference(x, rule, k)
             torch.cuda.synchronize()
-            assert torch.equal(got, plain), (tile, shape, rule, k)
-    assert packed_sweep.packed_sweep.launches == before + 2 * len(SHAPES)
+            assert torch.equal(got, plain), (rule, tile, shape, k)
+    assert packed_sweep.packed_sweep.launches == before + len(TILE_RULES) * len(SHAPES)
 
 
 @pytest.mark.cuda
@@ -346,7 +424,7 @@ def test_gen_tile_variants_match_plain(tile, k):
 def test_ltl_tile_variants_match_plain(tile):
     _need_gpu()
     rng = np.random.default_rng(tile)
-    for shape in [(1, 1), (3, 5), (37, 19), (64, 300), (1000, 333)]:
+    for shape in [(1, 1), (3, 5), (37, 19), (64, 300), (1000, 333), (70, 4096)]:
         board = torch.from_numpy((rng.random(shape) < 0.4).astype(np.uint8)).to("cuda")
         for rule in _ltl_rules():
             got = ltl_sweep.ltl_sweep(board, rule, tile_rows=tile)
@@ -357,19 +435,30 @@ def test_ltl_tile_variants_match_plain(tile):
 
 @pytest.mark.cuda
 def test_launchers_refuse_a_tile_past_shared_memory():
-    """The C launchers refuse a depth whose tile does not fit, as the
-    wrappers do before them: nothing is launched."""
+    """The C launchers refuse what the wrappers refuse before them, and
+    launch nothing: a board whose strips pass the grid's 65535 rows of
+    blocks (the packed and LtL tiles need no more shared memory at one
+    tile than another), and for LtL a radius past 10."""
     import ctypes
 
     _need_gpu()
-    x = bitpack.words_from_numpy(_words((64, 2), 1), "cuda")
-    out = torch.empty_like(x)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    fn = packed_sweep._launcher(packed_sweep.tile_defines(846))
-    assert fn(x.data_ptr(), out.data_ptr(), 64, 2, 31, 8, 12, stream) == 0
-    fn = packed_sweep._launcher(packed_sweep.tile_defines(900))
-    assert fn(x.data_ptr(), out.data_ptr(), 64, 2, 31, 8, 12, stream) != 0
-    assert fn(x.data_ptr(), out.data_ptr(), 64, 2, 4, 8, 12, stream) == 0
+    x = bitpack.words_from_numpy(_words((65536, 1), 1), "cuda")
+    out = torch.empty_like(x)
+    launch = packed_sweep._launcher(packed_sweep.library_defines("conway", 1)).launch
+    assert launch(x.data_ptr(), out.data_ptr(), 65535, 1, 31, stream) == 0
+    assert launch(x.data_ptr(), out.data_ptr(), 65536, 1, 31, stream) != 0
+    assert launch(x.data_ptr(), out.data_ptr(), 65536, 1, 32, stream) != 0
+    board = torch.zeros((65536, 16), dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(board)
+    ranges = ltl_sweep._ranges_on(resolve_rule("bugs"), board.device)
+    lib = ltl_sweep._library(ltl_sweep.tile_defines(1))
+    assert lib.ltl_sweep_launch(board.data_ptr(), dst.data_ptr(), 65535, 16, 5,
+                                ranges.data_ptr(), 1, stream) == 0
+    assert lib.ltl_sweep_launch(board.data_ptr(), dst.data_ptr(), 65536, 16, 5,
+                                ranges.data_ptr(), 1, stream) != 0
+    assert lib.ltl_sweep_launch(board.data_ptr(), dst.data_ptr(), 64, 16, 11,
+                                ranges.data_ptr(), 1, stream) != 0
     torch.cuda.synchronize()
 
 

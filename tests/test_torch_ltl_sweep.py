@@ -90,10 +90,28 @@ def test_launch_path_raises_on_cpu_tensor():
 
 
 def test_rule_words_and_op_count():
-    birth, survive = ltl_sweep.rule_words(resolve_rule("bugs"))
-    assert len(birth) == len(survive) == ltl_sweep.RULE_WORDS == 14
-    assert {32 * w + b for w in range(14) for b in range(32) if birth[w] >> b & 1} == set(range(34, 46))
-    assert {32 * w + b for w in range(14) for b in range(32) if survive[w] >> b & 1} == set(range(33, 58))
+    """The kernel's rule table: the counts of birth and survive runs, then
+    each run's lowest box count and one past its highest (box counts include
+    the centre, so survive runs move up by one)."""
+    assert ltl_sweep.rule_ranges(resolve_rule("bugs")) == [1, 1, 34, 46, 34, 59]
+    sparse = Rule(frozenset({3, 4, 5, 9}), frozenset({2, 3, 8}), radius=2, kind="ltl")
+    assert ltl_sweep.rule_ranges(sparse) == [2, 2, 3, 6, 9, 10, 3, 5, 9, 10]
     top = _band(Rule, 10)
-    assert max(top.survive) == 120 and ltl_sweep.rule_words(top)[1][3] >> 24 & 1
+    assert ltl_sweep.rule_ranges(top)[-1] == max(top.survive) + 2
     assert ltl_sweep.ops_per_cell("bugs") == ltl_sweep.ops_per_cell(top) == 9
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_rule_ranges_decode_to_the_sets(seed):
+    rng = np.random.default_rng(seed)
+    radius = int(rng.integers(1, 11))
+    counts = range((2 * radius + 1) ** 2)
+    birth = frozenset(n for n in counts if rng.random() < 0.3)
+    survive = frozenset(n for n in counts if rng.random() < 0.6)
+    table = ltl_sweep.rule_ranges(Rule(birth, survive, radius=radius, kind="ltl"))
+    nb, ns = table[0], table[1]
+    runs = [table[2 + 2 * i: 4 + 2 * i] for i in range(nb + ns)]
+    assert len(table) == 2 + 2 * (nb + ns)
+    assert {n for lo, hi in runs[:nb] for n in range(lo, hi)} == birth
+    assert {n - 1 for lo, hi in runs[nb:] for n in range(lo, hi)} == survive
+    assert all(hi > lo for lo, hi in runs)

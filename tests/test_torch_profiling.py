@@ -204,7 +204,7 @@ def test_frontend_profile_captures_and_fans_out(tmp_path):
         assert h.frontend.wait_for_backends(timeout=30)
         h.workers[0].profile_dir = str(tmp_path / "w0")
         status, doc = _post(f"http://127.0.0.1:{cfg.metrics_port}", "/profile?seconds=0.1")
-        assert status == 200 and doc["ok"] and doc["members"] == ["w0"]
+        assert status == 200 and doc["ok"] and doc["queued"] == ["w0"]
         assert os.path.exists(os.path.join(doc["artifact"], profiling.TRACE_FILE))
         worker_trace = tmp_path / "w0" / "profile-w0-0001" / profiling.TRACE_FILE
         deadline = time.time() + 60

@@ -118,3 +118,71 @@ def test_rule_masks_and_op_count():
     assert packed_sweep.ops_per_word_step("day-and-night") == 13
     for rule in ("highlife", "seeds", "life-without-death"):
         assert 10 <= packed_sweep.ops_per_word_step(rule) <= 14
+
+
+def test_library_key_is_the_rule_and_the_tile():
+    """One library per rule: every binary rule of the catalogue and a
+    custom B/S string map to their own masks' defines (and combine
+    network's), equal rules to one key, and the default tile, named or
+    not, adds nothing to it."""
+    from akka_game_of_life_tpu_torch.ops.rules import NAMED_RULES
+
+    rules = [r for r in NAMED_RULES.values() if r.kind == "totalistic" and r.states == 2]
+    rules.append(resolve_rule("B0378/S1268"))
+    assert len(rules) >= 6
+    by_key = {}
+    for rule in rules:
+        birth, survive1 = packed_sweep.rule_masks(rule)
+        key = packed_sweep.library_defines(rule)
+        assert key[:2] == (f"-DRULE_BIRTH={birth:#x}", f"-DRULE_SURVIVE1={survive1:#x}")
+        assert key[2:] == packed_sweep.combine_define(rule)
+        by_key.setdefault(key, set()).add((rule.birth, rule.survive))
+    assert all(len(same) == 1 for same in by_key.values())
+    assert len(by_key) == len({(r.birth, r.survive) for r in rules})
+    default = packed_sweep.library_defines("conway")
+    assert default == packed_sweep.library_defines("B3/S23", packed_sweep.DEFAULT_TILE_ROWS)
+    assert packed_sweep.library_defines("conway", 64) == (*default, "-DTILE_ROWS=64")
+
+
+def _network_next_state(net, t, x):
+    """The kernel's combine from ``-DRULE_COMBINE``: a LOP3 over three of
+    the signals b0..b3 (the 9-cell count's bits) and x, then maybe one
+    over it and two more."""
+    signal = [t & 1, (t >> 1) & 1, (t >> 2) & 1, (t >> 3) & 1, x]
+
+    def lop3(table, a, b, c):
+        return (table >> (4 * a + 2 * b + c)) & 1
+
+    first = lop3(net & 0xFF, *(signal[(net >> s) & 7] for s in (8, 11, 14)))
+    if not net >> 31:
+        return first
+    return lop3((net >> 17) & 0xFF, first, *(signal[(net >> s) & 7] for s in (25, 28)))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_combine_network_computes_the_rule(seed):
+    """Every network ``combine_define`` hands the kernel gives the rule's
+    next state at every (count, cell) a torus can show; Conway's and
+    HighLife's take two LOP3, Day & Night's none fits in two."""
+    from akka_game_of_life_tpu_torch.ops.rules import NAMED_RULES, Rule
+
+    rng = np.random.default_rng(seed)
+    rules = [r for r in NAMED_RULES.values() if r.kind == "totalistic" and r.states == 2]
+    rules += [Rule(frozenset(int(n) for n in np.flatnonzero(rng.random(9) < 0.3)),
+                   frozenset(int(n) for n in np.flatnonzero(rng.random(9) < 0.4)))
+              for _ in range(40)]
+    networks = 0
+    for rule in rules:
+        define = packed_sweep.combine_define(rule)
+        if not define:
+            continue
+        networks += 1
+        net = int(define[0].split("=")[1], 16)
+        for x in (0, 1):
+            for t in range(x, 9 + x):
+                want = int(t in ({n + 1 for n in rule.survive} if x else rule.birth))
+                assert _network_next_state(net, t, x) == want, (rule, t, x)
+    assert networks >= 10
+    for name in ("conway", "highlife"):
+        assert (int(packed_sweep.combine_define(name)[0].split("=")[1], 16) >> 31) == 1
+    assert packed_sweep.combine_define("day-and-night") == ()

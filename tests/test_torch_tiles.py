@@ -49,10 +49,21 @@ def launches(monkeypatch):
     return seen
 
 
+CONWAY_KEY = ("-DRULE_BIRTH=0x8", "-DRULE_SURVIVE1=0x18", "-DRULE_COMBINE=0xc5068817")
+
+
 @pytest.mark.parametrize(
-    "tile,want", [(None, ()), (256, ()), (64, ("-DTILE_ROWS=64",)), (300, ("-DTILE_ROWS=300",))]
+    "tile,want",
+    [
+        (None, CONWAY_KEY),
+        (packed_sweep.DEFAULT_TILE_ROWS, CONWAY_KEY),
+        (64, (*CONWAY_KEY, "-DTILE_ROWS=64")),
+        (300, (*CONWAY_KEY, "-DTILE_ROWS=300")),
+    ],
 )
 def test_packed_tile_reaches_the_launcher(launches, tile, want):
+    """The library key is the rule's masks and combine network, then the
+    tile (none for the default one)."""
     fn = packed_sweep.packed_multi_step_fn("conway", 20, tile_rows=tile)
     fn(_meta((64, 2)))
     assert launches == [("packed_sweep", want)] * 2
@@ -67,7 +78,13 @@ def test_plane_tile_reaches_the_launcher(launches, tile, want):
 
 
 @pytest.mark.parametrize(
-    "tile,want", [(None, ()), (64, ()), (16, ("-DTILE_ROWS=16",)), (200, ("-DTILE_ROWS=200",))]
+    "tile,want",
+    [
+        (None, ()),
+        (ltl_sweep.DEFAULT_TILE_ROWS, ()),
+        (16, ("-DTILE_ROWS=16",)),
+        (200, ("-DTILE_ROWS=200",)),
+    ],
 )
 def test_ltl_tile_reaches_the_launcher(launches, tile, want):
     ltl_sweep.ltl_multi_step_fn("bugs", 3, tile_rows=tile)(_meta((64, 64), torch.uint8))
@@ -80,14 +97,21 @@ def test_defines_select_the_library(monkeypatch):
     asked = []
 
     class Fn:
-        def __call__(self):
-            return ltl_sweep.RULE_WORDS
+        def __init__(self, result=0):
+            self.result = result
+
+        def __call__(self, *args):
+            return self.result
+
+    class Variant(Fn):
+        def __call__(self, birth, survive1, tile):  # byref arguments
+            tile._obj.value = packed_sweep.DEFAULT_TILE_ROWS
 
     def fake_load(name, defines=()):
         asked.append((name, defines))
         lib = types.SimpleNamespace(
-            packed_sweep_launch=Fn(), gen_sweep_launch=Fn(),
-            ltl_sweep_launch=Fn(), ltl_sweep_rule_words=Fn(),
+            packed_sweep_launch=Fn(), packed_sweep_variant=Variant(), gen_sweep_launch=Fn(),
+            ltl_sweep_launch=Fn(), ltl_sweep_tile_rows=Fn(ltl_sweep.DEFAULT_TILE_ROWS),
         )
         return _build.Built(lib, 0.0, "")
 
@@ -95,16 +119,16 @@ def test_defines_select_the_library(monkeypatch):
     for loader in (packed_sweep._launcher, gen_sweep._library, ltl_sweep._library):
         loader.cache_clear()
     try:
-        packed_sweep._launcher(packed_sweep.tile_defines(64))
-        packed_sweep._launcher(packed_sweep.tile_defines(None))
+        packed_sweep._launcher(packed_sweep.library_defines("conway", 64))
+        packed_sweep._launcher(packed_sweep.library_defines("highlife"))
         gen_sweep._library(gen_sweep.tile_defines(32))
         ltl_sweep._library(ltl_sweep.tile_defines(128))
     finally:
         for loader in (packed_sweep._launcher, gen_sweep._library, ltl_sweep._library):
             loader.cache_clear()
     assert asked == [
-        ("packed_sweep", ("-DTILE_ROWS=64",)),
-        ("packed_sweep", ()),
+        ("packed_sweep", (*CONWAY_KEY, "-DTILE_ROWS=64")),
+        ("packed_sweep", ("-DRULE_BIRTH=0x48", "-DRULE_SURVIVE1=0x18", "-DRULE_COMBINE=0xa0490836")),
         ("gen_sweep", ("-DTILE_ROWS=32",)),
         ("ltl_sweep", ("-DTILE_ROWS=128",)),
     ]
@@ -160,15 +184,36 @@ def test_mesh_passes_pallas_block_rows(monkeypatch, rule, fn):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        (dict(rule="conway", pallas_block_rows=900), "does not fit a block"),
+        # 70000 one-row tiles pass the grid's 65535 rows of blocks.
+        (dict(rule="conway", pallas_block_rows=1, height=70_000), "does not fit the packed sweep"),
         (dict(rule="B2/S345/200", pallas_block_rows=120), "does not fit a block of 8 planes"),
-        (dict(rule="bugs", pallas_block_rows=1000), "does not fit the LtL kernel"),
+        (dict(rule="bugs", pallas_block_rows=1, height=70_000), "does not fit the LtL kernel"),
     ],
 )
 def test_infeasible_tiles_raise_when_the_run_is_built(kw, match):
-    cfg = SimulationConfig(height=64, width=64, steps_per_call=10, kernel="pallas", **kw)
+    kw = {"height": 64, **kw}
+    cfg = SimulationConfig(width=64, steps_per_call=10, kernel="pallas", **kw)
     with pytest.raises(ValueError, match=match):
         tsim.Simulation(cfg, device="cpu")
+
+
+def test_tile_rules_of_the_redesigned_kernels():
+    """The packed sweep keeps every level in registers and the LtL step a
+    ring of 2R+1 rows per lane in shared memory (10.5 KB at R = 10, under
+    48 KB at any tile), so only the depth or radius and the grid's 65535
+    rows of tiles bound a variant."""
+    assert packed_sweep.tile_fits(1, 31, 65535) and not packed_sweep.tile_fits(1, 31, 65536)
+    assert packed_sweep.tile_fits(2, 31, 65535 * 2) and not packed_sweep.tile_fits(2, 31, 65535 * 2 + 1)
+    assert packed_sweep.tile_fits(None, 10, 65536) and packed_sweep.tile_fits(4096, 1)
+    assert not packed_sweep.tile_fits(0, 10) and not packed_sweep.tile_fits(64, 32)
+    with pytest.raises(ValueError, match="does not fit the packed sweep"):
+        packed_sweep.packed_sweep(_meta((65536, 1)), "conway", 4, tile_rows=1)
+    assert ltl_sweep.smem_bytes(10) == 21 * 32 * 16 < 48 * 1024
+    assert ltl_sweep.smem_bytes(5) == 11 * 512
+    assert ltl_sweep.tile_fits(1, 10, 65535) and not ltl_sweep.tile_fits(1, 5, 65536)
+    assert not ltl_sweep.tile_fits(64, 11) and not ltl_sweep.tile_fits(0, 5)
+    with pytest.raises(ValueError, match="does not fit the LtL kernel"):
+        ltl_sweep.ltl_sweep(_meta((65536, 8), torch.uint8), "bugs", tile_rows=1)
 
 
 def test_pallas_block_rows_config_checks():
