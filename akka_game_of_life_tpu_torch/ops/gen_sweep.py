@@ -16,12 +16,15 @@ rounding, ``H % block_rows == 0``) do not bind the CUDA kernel, which wraps
 every index modulo the torus.  Binary rules (one plane) step through
 ``ops/packed_sweep.py``; this kernel takes m = 2..8 planes (3..255 states).
 
-``tile_rows`` (the Pallas API's ``block_rows``) picks a compile-time variant:
-``None`` is the default library, whose tile is ``ROW_BUDGET // m`` rows of
-every plane; another value a library built with ``-DTILE_ROWS=<rows>``, whose
-tile is that many rows at every m.  A variant computes the same planes; only a
-tile whose buffers do not fit a block (:func:`tile_fits`) is refused, with
-``ValueError``, on the CPU too.
+The kernel is compiled per rule: a library is built with the rule's masks,
+its state count, the WireWorld flag and its combine network, and
+:func:`library_defines` is its key (``_build.load`` hashes the source with
+those flags), so a rule a run names is built at its first launch.
+``tile_rows`` (the Pallas API's ``block_rows``) picks the tile: ``None`` is
+:data:`DEFAULT_TILE_ROWS` output rows per block at every m, another value
+``-DTILE_ROWS=<rows>``.  A variant computes the same planes; only a tile
+whose strips would pass the grid's rows of blocks (:func:`tile_fits`) is
+refused, with ``ValueError``, on the CPU too.
 """
 
 from __future__ import annotations
@@ -29,56 +32,61 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Callable, Optional, Tuple
+import threading
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from akka_game_of_life_tpu_torch.ops import bitpack, bitpack_gen
-from akka_game_of_life_tpu_torch.ops.packed_sweep import MAX_STEPS_PER_SWEEP, plan_sweeps
+from akka_game_of_life_tpu_torch.ops.packed_sweep import (
+    MAX_GRID_ROWS,
+    MAX_STEPS_PER_SWEEP,
+    combine_choice,
+    plan_sweeps,
+)
 from akka_game_of_life_tpu_torch.ops.rules import Rule, resolve_rule
 
 PLANE_COUNTS = range(2, 9)
-# Shared memory a block may opt into on the H100 (227 KB), and the words of
-# one tile row (30 output words and one halo word a side).
-SMEM_LIMIT_BYTES = 232448
-TILE_COLS = 32
-# The default library's tile: ROW_BUDGET // m output rows of each of m planes
-# (``csrc/gen_sweep.cu``'s kRowBudget).
-ROW_BUDGET = 256
+# Output rows per block (one warp's strip) of a library built without
+# -DTILE_ROWS (``csrc/gen_sweep.cu``), at every m: the best tile of ``tune
+# --rule wireworld --size 16384 --steps-per-call 60 --sweeps 10`` on an H100
+# at 700 W (PERF.md), and within 4% of Brian's Brain's best at 65536².
+DEFAULT_TILE_ROWS = 192
+# The cluster's in-process workers launch from several threads; the launch
+# count must not lose an increment between them.
+_COUNT_LOCK = threading.Lock()
 
 
-def default_tile_rows(m: int) -> int:
-    return ROW_BUDGET // m
-
-
-def smem_bytes(m: int, tile_rows: Optional[int], steps_per_sweep: int) -> int:
-    """Shared memory of one block: two buffers of m planes of (tile + 2k)
-    rows of :data:`TILE_COLS` words."""
-    rows = default_tile_rows(m) if tile_rows is None else tile_rows
-    return 2 * m * (rows + 2 * steps_per_sweep) * TILE_COLS * 4
-
-
-def tile_fits(m: int, tile_rows: Optional[int], steps_per_sweep: int) -> bool:
+def tile_fits(
+    tile_rows: Optional[int], steps_per_sweep: int, height: int = 1
+) -> bool:
     """Does a ``tile_rows`` variant take a ``steps_per_sweep``-deep sweep of
-    m planes?"""
-    return (tile_rows is None or tile_rows >= 1) and (
-        smem_bytes(m, tile_rows, steps_per_sweep) <= SMEM_LIMIT_BYTES
+    ``height`` rows?  The kernel needs no more shared memory at one tile
+    than another, so only the depth and the grid's rows of strips bound it,
+    at every plane count."""
+    rows = DEFAULT_TILE_ROWS if tile_rows is None else tile_rows
+    return (
+        rows >= 1
+        and 1 <= steps_per_sweep <= MAX_STEPS_PER_SWEEP
+        and -(-height // rows) <= MAX_GRID_ROWS
     )
 
 
-def check_tile(m: int, tile_rows: Optional[int], steps_per_sweep: int) -> None:
-    if not tile_fits(m, tile_rows, steps_per_sweep):
+def check_tile(tile_rows: Optional[int], steps_per_sweep: int, height: int = 1) -> None:
+    if not tile_fits(tile_rows, steps_per_sweep, height):
         raise ValueError(
-            f"tile_rows={tile_rows} at steps_per_sweep={steps_per_sweep} does "
-            f"not fit a block of {m} planes: "
-            f"{smem_bytes(m, tile_rows, steps_per_sweep)} B of shared memory, "
-            f"the limit is {SMEM_LIMIT_BYTES}"
+            f"tile_rows={tile_rows} does not fit the plane sweep at "
+            f"steps_per_sweep={steps_per_sweep} on {height} rows (tiles of "
+            f">= 1 rows, 1..{MAX_STEPS_PER_SWEEP} steps, at most "
+            f"{MAX_GRID_ROWS} tiles down the board)"
         )
 
 
 def tile_defines(tile_rows: Optional[int]) -> Tuple[str, ...]:
-    """The ``-D`` flags of a tile variant (``None``: the default library)."""
-    return () if tile_rows is None else (f"-DTILE_ROWS={int(tile_rows)}",)
+    """The ``-D`` flags of a tile; the default tile adds none."""
+    if tile_rows is None or tile_rows == DEFAULT_TILE_ROWS:
+        return ()
+    return (f"-DTILE_ROWS={int(tile_rows)}",)
 
 
 def require_sweep_support(rule: Rule) -> int:
@@ -101,6 +109,31 @@ def rule_masks(rule: Rule) -> Tuple[int, int]:
     if rule.kind == "wireworld":
         return birth, 0
     return birth, sum(1 << (n + 1) for n in rule.survive)
+
+
+def combine_cells(rule: Rule) -> Tuple[int, ...]:
+    """The centres the kernel's combine network serves: dead and live cells
+    (``survive(t)`` on a live one), or dead cells alone where no live cell
+    survives and for WireWorld's excite."""
+    return (0,) if rule.kind == "wireworld" or not rule.survive else (0, 1)
+
+
+def library_defines(rule, tile_rows: Optional[int] = None) -> Tuple[str, ...]:
+    """The library key of a rule and a tile: its ``-D`` flags, the rule's
+    masks (:func:`rule_masks`), its state count and the WireWorld flag
+    first, then its combine network (``packed_sweep.combine_choice`` over
+    :func:`combine_cells`), then the tile's."""
+    rule = resolve_rule(rule)
+    require_sweep_support(rule)
+    birth, survive1 = rule_masks(rule)
+    return (
+        f"-DRULE_BIRTH={birth:#x}",
+        f"-DRULE_SURVIVE1={survive1:#x}",
+        f"-DRULE_STATES={rule.states}",
+        *(("-DRULE_WIREWORLD=1",) if rule.kind == "wireworld" else ()),
+        *combine_choice(rule, combine_cells(rule))[1],
+        *tile_defines(tile_rows),
+    )
 
 
 def _check_steps(m: int, steps_per_sweep: int) -> int:
@@ -130,30 +163,54 @@ def gen_sweep_reference(planes: torch.Tensor, rule, steps_per_sweep: int) -> tor
     return bitpack_gen.gen_multi_step(planes, rule, _check_steps(m, steps_per_sweep))
 
 
+def _variant(rule: Rule) -> Tuple[int, int, int, int]:
+    """(birth, survive1, states, WireWorld flag): what a library holds."""
+    return (*rule_masks(rule), rule.states, int(rule.kind == "wireworld"))
+
+
+class _Library(NamedTuple):
+    launch: Callable
+    variant: Tuple[int, int, int, int, int]  # _variant's four, then tile rows
+
+
 @functools.lru_cache(maxsize=None)
-def _library(defines: Tuple[str, ...] = ()):
-    """``csrc/gen_sweep.cu`` built at first use; ``defines``
-    (``-DTILE_ROWS=..``) pick a tile variant."""
+def _launcher(defines: Tuple[str, ...]) -> _Library:
+    """The C entry point of ``csrc/gen_sweep.cu`` built with ``defines``
+    (:func:`library_defines`: a rule and a tile), at first use."""
     from akka_game_of_life_tpu_torch.ops import _build
 
     lib = _build.load("gen_sweep", defines).lib
-    lib.gen_sweep_launch.argtypes = [
+    fn = lib.gen_sweep_launch
+    fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint,
-        ctypes.c_uint, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
-    lib.gen_sweep_launch.restype = ctypes.c_int
-    return lib
+    fn.restype = ctypes.c_int
+    birth, survive1, states = ctypes.c_uint(), ctypes.c_uint(), ctypes.c_uint()
+    wire, tile = ctypes.c_int(), ctypes.c_int()
+    lib.gen_sweep_variant.argtypes = [ctypes.c_void_p] * 5
+    lib.gen_sweep_variant.restype = None
+    lib.gen_sweep_variant(*(ctypes.byref(v) for v in (birth, survive1, states, wire, tile)))
+    if not any(d.startswith("-DTILE_ROWS=") for d in defines) and tile.value != DEFAULT_TILE_ROWS:
+        raise RuntimeError(
+            f"csrc/gen_sweep.cu's default tile is {tile.value} rows, "
+            f"ops/gen_sweep.py's {DEFAULT_TILE_ROWS}"
+        )
+    return _Library(
+        fn, (birth.value, survive1.value, states.value, wire.value, tile.value)
+    )
 
 
 def _launch(
     planes: torch.Tensor,
     rule: Rule,
     steps_per_sweep: int,
-    defines: Tuple[str, ...] = (),
+    defines: Optional[Tuple[str, ...]] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel on a CUDA tensor; raises on anything else,
-    including a depth the kernel refuses."""
+    """Launch the CUDA kernel on a CUDA tensor through the library
+    ``defines`` names (by default the rule's, at the default tile); raises
+    on anything else, including a depth the kernel refuses, and if the
+    library was built for another rule."""
     m = bitpack_gen.n_planes(rule.states)
     if planes.device.type != "cuda":
         raise ValueError(f"the CUDA plane sweep needs a CUDA tensor, got {planes.device}")
@@ -162,18 +219,25 @@ def _launch(
     if not planes.is_contiguous():
         raise ValueError("bit planes must be a contiguous (m, H, W/32) tensor")
     _check_planes(planes, m)
+    if defines is None:
+        defines = library_defines(rule)
+    library = _launcher(defines)
+    if library.variant[:4] != _variant(rule):
+        raise RuntimeError(
+            f"plane sweep library {defines} was built for rule "
+            f"{library.variant[:4]}, not {rule}'s {_variant(rule)}"
+        )
     _, h, nw = planes.shape
     out = torch.empty_like(planes)
-    birth, survive1 = rule_masks(rule)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     with torch.cuda.device(planes.device):
-        rc = _library(defines).gen_sweep_launch(
-            planes.data_ptr(), out.data_ptr(), m, h, nw, steps_per_sweep,
-            birth, survive1, rule.states, int(rule.kind == "wireworld"), stream,
+        rc = library.launch(
+            planes.data_ptr(), out.data_ptr(), m, h, nw, steps_per_sweep, stream
         )
     if rc != 0:
         raise RuntimeError(f"gen_sweep_launch failed: CUDA error {rc}")
-    gen_sweep.launches += 1
+    with _COUNT_LOCK:
+        gen_sweep.launches += 1
     return out
 
 
@@ -181,17 +245,18 @@ def gen_sweep(
     planes: torch.Tensor, rule, steps_per_sweep: int, *, tile_rows: Optional[int] = None
 ) -> torch.Tensor:
     """Advance stacked (m, H, W/32) int32 planes by ``steps_per_sweep``
-    generations in one pass: the CUDA kernel (its ``tile_rows`` variant)
-    for a CUDA tensor, the plain version for a CPU tensor.
-    ``gen_sweep.launches`` counts kernel launches of every variant."""
+    generations in one pass: the CUDA kernel (the library of the rule and
+    its ``tile_rows`` variant) for a CUDA tensor, the plain version for a
+    CPU tensor.  ``gen_sweep.launches`` counts kernel launches of every
+    variant."""
     rule = resolve_rule(rule)
     m = require_sweep_support(rule)
     _check_planes(planes, m)
     _check_steps(m, steps_per_sweep)
-    check_tile(m, tile_rows, steps_per_sweep)
+    check_tile(tile_rows, steps_per_sweep, planes.shape[1])
     if planes.device.type == "cpu":
         return gen_sweep_reference(planes, rule, steps_per_sweep)
-    return _launch(planes, rule, steps_per_sweep, tile_defines(tile_rows))
+    return _launch(planes, rule, steps_per_sweep, library_defines(rule, tile_rows))
 
 
 gen_sweep.launches = 0
@@ -214,7 +279,7 @@ def gen_multi_step_fn(
     depths = plan_sweeps(n_steps, steps_per_sweep)
     for k in set(depths):
         _check_steps(m, k)
-        check_tile(m, tile_rows, k)
+        check_tile(tile_rows, k)
 
     def run(planes: torch.Tensor) -> torch.Tensor:
         for k in depths:
@@ -224,32 +289,26 @@ def gen_multi_step_fn(
     return run
 
 
-def _eq_lop3(m: int) -> int:
-    """Three-input logic instructions for an m-input AND (state == v)."""
-    return math.ceil((m - 1) / 2)
+def _and_lop3(n: int) -> int:
+    """Three-input logic instructions of an n-input AND (n >= 2)."""
+    return math.ceil((n - 1) / 2)
 
 
 def ops_per_word_step(rule) -> int:
     """Instructions per word per generation of the plane step in its
-    LOP3/SHF form, the operation count of a sweep's bound: the alive plane
-    (an m-input AND), its row sums (2 funnel shifts, 2 LOP3) and count bits
-    (6 LOP3, +1 for b3 where a predicate reads counts 8-9), then each
-    non-empty count predicate in at most 3 LOP3 (a 4-input function by
-    Shannon expansion on one bit).  WireWorld adds one LOP3 for p1' (p0' is
-    p1).  Generations adds the dead and S-1 planes (two m-input ANDs),
-    to_one (2), advance (1), plane 0 (1) and, for each higher plane, the
-    increment's sum and carry (2, no carry out of the top plane)."""
+    LOP3/SHF form, the operation count of a sweep's bound, counted as
+    ``packed_sweep.ops_per_word_step`` counts the binary step: the alive
+    plane (an m-input AND), its row sums (2 funnel shifts, 2 LOP3) and the
+    count bits (6 LOP3, one more where the combine reads b3), the rule's
+    fewest-LOP3 combine (``packed_sweep.combine_choice`` over
+    :func:`combine_cells`), then the planes' update: WireWorld one LOP3
+    (p1' over p0, p1 and excite; p0' is p1), Generations at m = 2 one LOP3
+    per plane over (net, p0, p1), deeper at least one per plane and one per
+    carry of the increment past p0 & p1 (WireWorld 13, Brian's Brain 14)."""
     rule = resolve_rule(rule)
     m = require_sweep_support(rule)
-    if rule.kind == "wireworld":
-        read = set(rule.birth)
-    else:
-        read = set(rule.birth) | {n + 1 for n in rule.survive}
-    ops = _eq_lop3(m) + 4 + 6 + int(any(n >= 8 for n in read))
-    predicates = [rule.birth] if rule.kind == "wireworld" else [
-        rule.birth, rule.survive
-    ]
-    ops += sum(3 for p in predicates if p)
+    combine = combine_choice(rule, combine_cells(rule))[0]
+    ops = _and_lop3(m) + 4 + 6 + combine
     if rule.kind == "wireworld":
         return ops + 1
-    return ops + 2 * _eq_lop3(m) + 2 + 1 + 1 + 2 * (m - 1) - 1
+    return ops + m + max(0, m - 3)

@@ -261,15 +261,19 @@ def packed_multi_step_fn(
     return run
 
 
-def _combine_network(rule: Rule, count_bits: int) -> Tuple[int, Optional[int]]:
+def _combine_network(
+    rule: Rule, count_bits: int, cells: Tuple[int, ...] = (0, 1)
+) -> Tuple[int, Optional[int]]:
     """Fewest three-input logic instructions (LOP3) that map the low
     ``count_bits`` bits of the 9-cell count and the cell itself to the next
     state, and the network that does it: 0, 1 or 2 by exhaustive search
     (the network encoded as :func:`library_defines`' ``-DRULE_COMBINE``
     reads it); 3 where two do not suffice, which is then a lower bound,
-    and no network."""
+    and no network.  ``cells`` are the centre values the network must
+    serve: (0,) asks for the birth function of dead cells alone (the plane
+    sweep's rules without survival, and WireWorld's excite)."""
     survive1 = {n + 1 for n in rule.survive}
-    rows = [(t, x) for t in range(10) for x in (0, 1) if x <= t <= 8 + x]
+    rows = [(t, x) for t in range(10) for x in cells if x <= t <= 8 + x]
     target = tuple(int(t in (survive1 if x else rule.birth)) for t, x in rows)
     signals = [tuple((t >> i) & 1 for t, _ in rows) for i in range(count_bits)]
     signals.append(tuple(x for _, x in rows))
@@ -315,25 +319,25 @@ def _combine_network(rule: Rule, count_bits: int) -> Tuple[int, Optional[int]]:
     return 3, None
 
 
-def _combine_instructions(rule: Rule, count_bits: int) -> int:
-    return _combine_network(rule, count_bits)[0]
-
-
 def combine_define(rule) -> Tuple[str, ...]:
     """``-DRULE_COMBINE=..``: the rule's fewest-LOP3 network over the
     count bits and the cell (two LOP3 for Conway), where one of at most two
     exists; none for a rule that needs more, whose kernel combines by two
     lookup tables and a select."""
-    return _combine_define(resolve_rule(rule))
+    return combine_choice(resolve_rule(rule))[1]
 
 
 @functools.lru_cache(maxsize=None)
-def _combine_define(rule: Rule) -> Tuple[str, ...]:
-    low, net = _combine_network(rule, 3)
-    high, net4 = _combine_network(rule, 4)
+def combine_choice(rule: Rule, cells: Tuple[int, ...] = (0, 1)) -> Tuple[int, Tuple[str, ...]]:
+    """The combine a library is built with, over the count bits and the
+    cell (:func:`_combine_network`'s ``cells``): its LOP3 count, one more
+    where it reads b3 (a 3 stands for the lookup tables, a lower bound), and
+    its ``-DRULE_COMBINE`` define (none for the lookup tables)."""
+    low, net = _combine_network(rule, 3, cells)
+    high, net4 = _combine_network(rule, 4, cells)
     if net4 is not None and 1 + high < low:  # reading b3 costs one LOP3
-        net = net4
-    return () if net is None else (f"-DRULE_COMBINE={net:#x}",)
+        return 1 + high, (f"-DRULE_COMBINE={net4:#x}",)
+    return low, (() if net is None else (f"-DRULE_COMBINE={net:#x}",))
 
 
 def ops_per_word_step(rule) -> int:
@@ -344,7 +348,4 @@ def ops_per_word_step(rule) -> int:
     reads it; then the rule's fewest LOP3 combine (Conway: 4 + 6 + 2 = 12)."""
     rule = resolve_rule(rule)
     bitpack.require_packed_support(rule)
-    combine = min(
-        _combine_instructions(rule, 3), 1 + _combine_instructions(rule, 4)
-    )
-    return 4 + 6 + combine
+    return 4 + 6 + combine_choice(rule)[0]

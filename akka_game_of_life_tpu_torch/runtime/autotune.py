@@ -46,12 +46,13 @@ from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
 # counterpart of the JAX package's MEASURED_BLOCK_ROWS_CAPS.  Measured by
 # ``tune`` on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, row #8 of the
 # TPU-kernel table): the packed sweep's 192 rows (at 60 generations per
-# call), the LtL step's 48 rows and the plane sweep's 128 rows at m = 2
-# were the best points of their grids.  Changing one to a tune winner is a
-# measured change of its own.
+# call), the LtL step's 48 rows and the plane sweep's 192 rows (WireWorld
+# at 16384², 60 generations per call, 10 per sweep; the same tile at every
+# m) were the best points of their grids.  Changing one to a tune winner is
+# a measured change of its own.
 MEASURED_TILE_ROWS = {
     "packed_sweep": packed_sweep.DEFAULT_TILE_ROWS,
-    "gen_sweep": gen_sweep.ROW_BUDGET,  # rows x planes: 128 rows at m = 2
+    "gen_sweep": gen_sweep.DEFAULT_TILE_ROWS,
     "ltl_sweep": ltl_sweep.DEFAULT_TILE_ROWS,
 }
 
@@ -67,10 +68,7 @@ def kernel_of(rule) -> str:
 
 def default_tile_rows(rule) -> int:
     """The tile rows ``kernel=auto`` runs for ``rule``."""
-    kernel = kernel_of(rule)
-    if kernel == "gen_sweep":
-        return MEASURED_TILE_ROWS[kernel] // bitpack_gen.n_planes(resolve_rule(rule).states)
-    return MEASURED_TILE_ROWS[kernel]
+    return MEASURED_TILE_ROWS[kernel_of(rule)]
 
 
 def feasible(size: int, steps_per_call: int, b: int, k: int, rule="conway") -> bool:
@@ -81,10 +79,8 @@ def feasible(size: int, steps_per_call: int, b: int, k: int, rule="conway") -> b
 
     - ``b >= 1`` and ``1 <= k <= MAX_STEPS_PER_SWEEP`` (31: one halo word a
       side), and k divides ``steps_per_call``;
-    - the plane sweep: its tile's shared memory fits a block (227 KB), m
-      buffers pairs of (b + 2k) rows x 32 words;
-    - the packed sweep (registers only) and LtL (one generation per launch,
-      k = 1): the board is at most 65535 tiles tall.
+    - the packed and plane sweeps (levels in registers) and LtL (one
+      generation per launch, k = 1): the board is at most 65535 tiles tall.
     """
     rule = resolve_rule(rule)
     if b < 1 or k < 1 or k > packed_sweep.MAX_STEPS_PER_SWEEP:
@@ -95,7 +91,7 @@ def feasible(size: int, steps_per_call: int, b: int, k: int, rule="conway") -> b
     if kernel == "ltl_sweep":
         return k == 1 and ltl_sweep.tile_fits(b, rule.radius, size)
     if kernel == "gen_sweep":
-        return gen_sweep.tile_fits(bitpack_gen.n_planes(rule.states), b, k)
+        return gen_sweep.tile_fits(b, k, size)
     return packed_sweep.tile_fits(b, k, size)
 
 
@@ -139,12 +135,12 @@ def _step_fn(rule, kernel: str, steps_per_call: int, b: int, k: int):
 
 def variant_defines(rule, b: int):
     """The ``-D`` flags of a point's library: the tile's (none for the
-    default one), after the rule's for the packed sweep, which is built
-    per rule."""
+    default one), after the rule's for the packed and plane sweeps, which
+    are built per rule."""
     kernel = kernel_of(rule)
-    if kernel == "packed_sweep":
-        return packed_sweep.library_defines(rule, b)
-    return {"gen_sweep": gen_sweep.tile_defines, "ltl_sweep": ltl_sweep.tile_defines}[kernel](b)
+    if kernel == "ltl_sweep":
+        return ltl_sweep.tile_defines(b)
+    return {"packed_sweep": packed_sweep, "gen_sweep": gen_sweep}[kernel].library_defines(rule, b)
 
 
 def build_variants(rule, blocks: Sequence[int]) -> dict:
@@ -208,8 +204,8 @@ def sweep(
     if vmem_limit_mb:
         raise ValueError(
             f"vmem_limit_mb={vmem_limit_mb}: there is no Mosaic VMEM budget on "
-            f"the card (each launcher opts into the shared memory its tile "
-            f"needs); leave it 0"
+            f"the card (the kernels keep their tiles in registers and small "
+            f"shared-memory rings); leave it 0"
         )
     rule = resolve_rule(rule)
     kernel = kernel_of(rule)

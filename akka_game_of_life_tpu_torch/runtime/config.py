@@ -15,15 +15,17 @@ the port does not support — the multi-process mesh (``distributed``,
 ``ValueError`` that names it, never a silent default.
 ``checkpoint_format = "orbax"`` and a non-zero ``pallas_vmem_limit_mb`` are
 refused by name too: the port's store is npz, and the card has no Mosaic
-VMEM budget (each launcher opts into the shared memory its tile needs).
+VMEM budget (the kernels keep their tiles in registers and small
+shared-memory rings).
 
 One default differs from the JAX package on purpose: ``pallas_block_rows``
 is ``None``, "the kernel's own tile" (``ops/*_sweep.py:DEFAULT_TILE_ROWS``),
 where the JAX package's 64 is a TPU VMEM choice.  A file that sets the key
 means the same in both packages: the rows of a kernel block under
 ``kernel = "pallas"``.  The CUDA kernels wrap every index modulo the torus,
-so any positive row count is taken (no multiple-of-8 rule); a tile too large
-for a block's shared memory raises when the run is built.
+so any positive row count is taken (no multiple-of-8 rule); a tile whose
+strips would pass the grid's 65535 rows of blocks raises when the run is
+built.
 """
 
 from __future__ import annotations
@@ -275,8 +277,8 @@ class SimulationConfig:
             raise ValueError(
                 f"pallas_vmem_limit_mb={self.pallas_vmem_limit_mb} is not "
                 f"supported by the PyTorch port: there is no Mosaic VMEM "
-                f"budget on the card (each launcher opts into the shared "
-                f"memory its tile needs); leave it 0"
+                f"budget on the card (the kernels keep their tiles in "
+                f"registers and small shared-memory rings); leave it 0"
             )
         if self.steps_per_call < 1:
             raise ValueError(f"steps_per_call={self.steps_per_call} must be >= 1")

@@ -67,8 +67,8 @@ run saves, so any run resumes any other, meshed or not, in either package.
 **The tile.** Under ``kernel=pallas`` the CUDA kernels run the
 ``pallas_block_rows`` variant of their tile (``tune``'s answer, one library
 per tile); ``kernel=auto`` and an unset ``pallas_block_rows`` run the
-kernels' own tiles.  A tile too large for a block's shared memory raises when
-the run is built.
+kernels' own tiles.  A tile whose strips would pass the grid's 65535 rows of
+blocks raises when the run is built.
 
 **The run's machinery** is the JAX package's: the metrics registry, the span
 tracer and its flight recorder, the JSONL event log and the metrics-file
@@ -480,7 +480,6 @@ class Simulation:
 
     def _check_tile(self) -> None:
         """Refuse a ``pallas_block_rows`` tile the kernel cannot take (the
-        plane sweep's shared memory at the deepest sweep a chunk plans; the
         grid's rows of tiles), before any board is placed."""
         if self.tile_rows is None:
             return
@@ -489,8 +488,7 @@ class Simulation:
         if self.kernel == "sweep":
             packed_sweep.check_tile(self.tile_rows, k, cfg.height)
         elif self.kernel == "gen_sweep":
-            m = bitpack_gen.n_planes(self.rule.states)
-            gen_sweep.check_tile(m, self.tile_rows, k)
+            gen_sweep.check_tile(self.tile_rows, k, cfg.height)
         else:
             ltl_sweep.check_tile(self.tile_rows, self.rule.radius, cfg.height)
 

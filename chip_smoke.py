@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds the CUDA kernels from ``csrc/``
-(one ``nvcc`` per source, all at once), holds each kernel against its plain
-PyTorch version on the card, bit for bit, and drives the port's four main
-paths through its CLI:
+(one ``nvcc`` per source, all at once), reads the plane sweep's code with
+``cuobjdump`` (no spill at the main path's depths, no fewer LOP3/SHF per
+word than its bound counts), holds each kernel against its plain PyTorch
+version on the card, bit for bit, and drives the port's four main paths
+through its CLI:
 
 - the headline (``examples/headline-65536.toml``: a 65536² Conway torus
   with a Gosper gun, 240 epochs) through the packed sweep, with digests,
@@ -99,8 +101,12 @@ SMALL_SHAPES = [(1, 1), (3, 1), (37, 3), (64, 2), (1000, 33)]
 PACKED_RAGGED = [(5, 61), (9, 62), (13, 63), (40, 29), (33, 30), (17, 31), (8212, 513)]
 FULL_SHAPE = (65536, 2048)
 # The previous designs' times on an H100 80GB HBM3 at 700 W (PERF.md rows
-# 2 and 5), printed as ``pr5_ms`` beside this run's.
-PREVIOUS_MS = {"packed_sweep": 8.9694, "ltl_sweep": 1.2457}
+# 2, 4 and 5), printed beside this run's: the packed sweep and LtL step
+# before their redesign (as ``pr5_ms``), the plane sweep before its own (as
+# ``previous_ms``: WireWorld's 2 x 16384 x 512 words and Brian's Brain's
+# 2 x 65536 x 2048, both at k = 10).
+PREVIOUS_MS = {"packed_sweep": 8.9694, "ltl_sweep": 1.2457,
+               "gen_sweep": {"wireworld": 0.4787, "brians-brain": 8.0578}}
 REFERENCE_SIDE = 256  # gliders cross no edge of a 256² board in 240 epochs
 
 # The plane sweep: m = 2 (Brian's Brain, Star Wars, WireWorld), 3 (B2/S/7)
@@ -109,6 +115,10 @@ REFERENCE_SIDE = 256  # gliders cross no edge of a 256² board in 240 epochs
 GEN_RULES = ["brians-brain", "star-wars", "B2/S/7", "wireworld", "B2/S345/200"]
 GEN_FULL_RULE = "brians-brain"
 GEN_WIRE_SHAPE = (16384, 512)
+# The plane sweep's ragged shapes, at every m of GEN_RULES: H < 2k at the
+# deepest sweeps and word counts of one and two warps' spans (30 words a
+# warp) plus or minus one.
+GEN_RAGGED = [(5, 29), (9, 30), (13, 31), (40, 59), (33, 60), (17, 61), (61, 4)]
 WIREWORLD_REFERENCE_SIDE = 32  # the clock never leaves its loop
 
 # The LtL step: radii 1, 2, 5 (bugs) and 10, and a sparse count set.
@@ -154,7 +164,7 @@ WAIT_S = 240  # bound on every wait of the multi-process run
 # the port's rules, so none is dropped; LtL runs k = 1).
 TUNE_RUNS = {
     "conway": dict(size=65536, spc=64, blocks=(64, 128, 192, 256), sweeps=(4, 8, 16)),
-    "wireworld": dict(size=16384, spc=60, blocks=(64, 128, 192, 256), sweeps=(5, 10, 20)),
+    "wireworld": dict(size=16384, spc=60, blocks=(32, 64, 192, 256), sweeps=(5, 10, 20)),
     "bugs": dict(size=16384, spc=10, blocks=(32, 64, 128), sweeps=(4, 8, 16)),
 }
 TUNE_TIMED_CALLS = 2
@@ -319,13 +329,14 @@ def tune_libraries():
 
 
 def build_all(card):
-    """Each kernel's library (the packed sweep's for every rule it is held
-    at) and every tile variant of the tune phase, built from its source by
-    one nvcc each, all started together."""
-    from akka_game_of_life_tpu_torch.ops import _build, packed_sweep
+    """Each kernel's library (the packed and plane sweeps' for every rule
+    they are held at) and every tile variant of the tune phase, built from
+    its source by one nvcc each, all started together."""
+    from akka_game_of_life_tpu_torch.ops import _build, gen_sweep, packed_sweep
 
     libs = sorted(
-        {("gen_sweep", ()), ("ltl_sweep", ())}
+        {("ltl_sweep", ())}
+        | {("gen_sweep", gen_sweep.library_defines(rule)) for rule in GEN_RULES}
         | {("packed_sweep", packed_sweep.library_defines(rule)) for rule in RULES}
         | set(tune_libraries())
     )
@@ -342,6 +353,56 @@ def build_all(card):
         build_s={f"{name}{''.join(defines)}": b.seconds for (name, defines), b in built.items()},
         libraries=len(libs),
     )
+
+
+# cuobjdump's reports of the plane sweep's depth-k kernel: its resource line
+# and its code's opcodes.
+_RES_USAGE = re.compile(r"Function \S*gen_sweep_kernelILi(\d+)E\S*:\s+REG:(\d+) STACK:(\d+)")
+_SASS_OP = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)")
+
+
+def _cuobjdump(*args) -> str:
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, *args], capture_output=True, text=True, check=True).stdout
+
+
+def check_plane_build(card):
+    """The plane sweep's code, read from each rule's library: registers
+    and stack frame of every depth's kernel (no stack, so no spill, at the
+    main path's m = 2 points, k = 10 and 31), and the LOP3/SHF
+    instructions of the k = 10 kernel per word and generation (its three
+    unrolled rows of ten levels), which must be no fewer than the bound's
+    count (``ops_per_word_step``)."""
+    from akka_game_of_life_tpu_torch.ops import _build, bitpack_gen, gen_sweep
+    from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
+
+    report = {}
+    for name in GEN_RULES:
+        m = bitpack_gen.n_planes(resolve_rule(name).states)
+        lib = _build.load("gen_sweep", gen_sweep.library_defines(name)).lib._name
+        usage = {int(k): (int(reg), int(stack))
+                 for k, reg, stack in _RES_USAGE.findall(_cuobjdump("-res-usage", lib))}
+        check(sorted(usage) == list(range(1, 32)), f"gen_sweep {name}: depths {sorted(usage)}")
+        entry = {"planes": m, "registers": {k: usage[k][0] for k in (10, 31)},
+                 "stack_bytes": {k: st for k, (_, st) in usage.items() if st}}
+        if m == 2:
+            check(usage[10][1] == 0 and usage[31][1] == 0,
+                  f"gen_sweep {name} spills at k = 10 or 31: {usage[10]}, {usage[31]}")
+            ops, inside = {}, False
+            for line in _cuobjdump("-sass", lib).splitlines():
+                if "Function :" in line:
+                    inside = "gen_sweep_kernelILi10E" in line
+                    continue
+                op = _SASS_OP.match(line)
+                if inside and op:
+                    ops[op.group(1)] = ops.get(op.group(1), 0) + 1
+            issued = (ops.get("LOP3", 0) + ops.get("SHF", 0)) / (3 * 10)
+            count = gen_sweep.ops_per_word_step(name)
+            check(issued >= count, f"gen_sweep {name}: issues {issued} < the bound's {count}")
+            entry.update(lop3_shf_per_word_step_k10=issued, ops_per_word_step=count,
+                         shfl_k10=ops.get("SHFL", 0))
+        report[name] = entry
+    emit("plane_build", kernel="gen_sweep", libraries=report, card=card["name_power"])
 
 
 def check_packed_sweep(errors, rng):
@@ -377,17 +438,19 @@ def check_packed_sweep(errors, rng):
 
 def check_gen_sweep(errors, rng, card):
     """The plane sweep on random planes (invalid encodings included) at
-    small ragged shapes for every rule, at the WireWorld run's 2 x 16384 x
-    512 words for WireWorld and at 2 x 65536 x 2048 for Brian's Brain, at
-    depths 1, 7, the default and the deepest; then the launcher's refusal of
-    a depth past the deepest.  Returns the two large plane stacks, by rule
-    name, for the timing phase."""
+    small and ragged shapes for every rule (each through its own library),
+    at the WireWorld run's 2 x 16384 x 512 words for WireWorld and at 2 x
+    65536 x 2048 for Brian's Brain, at depths 1, 7, the default and the
+    deepest; then a library's refusal of another rule and the launcher's
+    refusals (a depth past the deepest, a plane count not its rule's, a
+    board of more than 65535 strips).  Returns the two large plane stacks,
+    by rule name, for the timing phase."""
     import ctypes
 
     import numpy as np
     import torch
 
-    from akka_game_of_life_tpu_torch.ops import bitpack, bitpack_gen, gen_sweep
+    from akka_game_of_life_tpu_torch.ops import bitpack_gen, gen_sweep
     from akka_game_of_life_tpu_torch.ops.packed_sweep import (
         DEFAULT_STEPS_PER_SWEEP,
         MAX_STEPS_PER_SWEEP,
@@ -403,7 +466,7 @@ def check_gen_sweep(errors, rng, card):
     for name in GEN_RULES:
         rule = resolve_rule(name)
         m = bitpack_gen.n_planes(rule.states)
-        for shape in SMALL_SHAPES:
+        for shape in SMALL_SHAPES + GEN_RAGGED:
             x = planes(m, shape)
             for k in depths:
                 errors.hold(
@@ -420,23 +483,35 @@ def check_gen_sweep(errors, rng, card):
                 f"2x{tuple(x.shape[1:])} {name} k={k}",
             )
             torch.cuda.empty_cache()
-    # The launcher itself refuses a depth past the deepest and a plane
-    # count that does not match the rule; nothing is launched.
-    lib = gen_sweep._library()
+    # A library built for one rule refuses a launch of another; the
+    # launcher itself refuses a depth past the deepest, a plane count that
+    # does not match its rule and a board of more than 65535 strips, and
+    # launches nothing.
     x = planes(2, (8, 2))
-    out = torch.empty_like(x)
+    for other in ("star-wars", "wireworld"):
+        try:
+            gen_sweep._launch(x, resolve_rule(other), 2, gen_sweep.library_defines("brians-brain"))
+        except RuntimeError as e:
+            check("built for rule" in str(e), f"gen_sweep library refusal: {e}")
+        else:
+            raise AssertionError(f"the brians-brain plane library launched {other}")
+    launch = gen_sweep._launcher(gen_sweep.library_defines("brians-brain")).launch
+    tall = planes(2, (65535 * gen_sweep.DEFAULT_TILE_ROWS + 1, 1))
+    out = torch.empty_like(tall)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     refused = [
-        lib.gen_sweep_launch(x.data_ptr(), out.data_ptr(), 2, 8, 2,
-                             MAX_STEPS_PER_SWEEP + 1, 4, 0, 3, 0, stream),
-        lib.gen_sweep_launch(x.data_ptr(), out.data_ptr(), 2, 8, 2, 1, 4, 0, 5, 0, stream),
+        launch(x.data_ptr(), out.data_ptr(), 2, 8, 2, MAX_STEPS_PER_SWEEP + 1, stream),
+        launch(x.data_ptr(), out.data_ptr(), 3, 8, 2, 1, stream),
+        launch(tall.data_ptr(), out.data_ptr(), 2, tall.shape[1], 1, 1, stream),
     ]
     check(all(rc != 0 for rc in refused), f"gen_sweep launcher accepted bad arguments: {refused}")
+    del tall, out
     emit(
         "kernel_vs_plain", kernel="gen_sweep",
         replaces="akka_game_of_life_tpu/ops/pallas_gen.py:50",
         check_launches=errors.checks["gen_sweep"],
-        shapes=SMALL_SHAPES, rules=GEN_RULES,
+        shapes=SMALL_SHAPES + GEN_RAGGED, rules=GEN_RULES,
+        libraries={name: list(gen_sweep.library_defines(name)) for name in GEN_RULES},
         large={name: list(x.shape) for name, x in large.items()},
         depths=depths, refused_codes=refused, max_abs_err=errors.max["gen_sweep"],
         card=card["name_power"],
@@ -1627,6 +1702,7 @@ def timings(card, words, gen_planes, ltl_board):
         emit("timing", kernel="gen_sweep", shape=list(x.shape), k=k, rule=name,
              ops_per_word_step=gen_sweep.ops_per_word_step(rule),
              ms_per_sweep=ms, cell_updates_per_s=h * nw * 32 * k / (ms / 1e3),
+             previous_ms=PREVIOUS_MS["gen_sweep"][name],
              plain_ms=plain, **bound, share_of_bound=bound["bound_ms"] / ms,
              library_ms=None, library_note="no single PyTorch call computes this plane step",
              card=card["name_power"])
@@ -1712,6 +1788,7 @@ def main() -> int:
 
     # -- 1. device and build ---------------------------------------------------
     phase("build", build_all, card)
+    phase("plane_build", check_plane_build, card)
 
     # -- 2. each kernel against its plain version on the card ------------------
     rng = np.random.default_rng(0)

@@ -50,10 +50,14 @@ def test_feasible_accepts_what_the_kernels_take():
 
 
 def test_feasible_per_kernel_shared_memory():
-    # Planes: m times the packed tile (WireWorld m = 2, a 256-state rule m = 8).
+    # Planes: registers (a lane's own shared-memory ring at large m and
+    # depth), the same at every tile and every m, so only the grid's rows of
+    # tiles bound a point, as for the packed sweep.
     assert ttune.feasible(64, 20, 400, 20, "wireworld")
-    assert not ttune.feasible(64, 20, 420, 20, "wireworld")
-    assert gen_sweep.tile_fits(8, None, 31)  # the default tile at the deepest sweep
+    assert ttune.feasible(64, 20, 420, 20, "wireworld")
+    assert ttune.feasible(65536, 62, 2, 31, "B2/S345/200")
+    assert not ttune.feasible(65536, 62, 1, 31, "B2/S345/200")
+    assert gen_sweep.tile_fits(None, 31)  # the default tile at the deepest sweep
     # LtL: one generation per launch; its ring fits at any tile, so only the
     # grid's rows of tiles bound it.
     assert ttune.feasible(64, 2, 16, 1, "bugs")
@@ -213,8 +217,9 @@ def test_tune_defaults_to_the_card(monkeypatch):
 
 def test_measured_tiles_are_the_kernels_defaults():
     assert ttune.MEASURED_TILE_ROWS == {
-        "packed_sweep": 192, "gen_sweep": 256, "ltl_sweep": 48,
+        "packed_sweep": 192, "gen_sweep": 192, "ltl_sweep": 48,
     }
     assert ttune.default_tile_rows("conway") == packed_sweep.DEFAULT_TILE_ROWS
-    assert ttune.default_tile_rows("wireworld") == gen_sweep.default_tile_rows(2) == 128
+    assert ttune.default_tile_rows("wireworld") == gen_sweep.DEFAULT_TILE_ROWS == 192
+    assert ttune.default_tile_rows("B2/S345/200") == gen_sweep.DEFAULT_TILE_ROWS
     assert ttune.default_tile_rows("bugs") == ltl_sweep.DEFAULT_TILE_ROWS

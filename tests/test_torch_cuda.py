@@ -72,11 +72,13 @@ def libraries():
 
     if not torch.cuda.is_available():
         return
-    libs = {("gen_sweep", ()), ("ltl_sweep", ())}
+    libs = {("ltl_sweep", ())}
+    libs |= {("gen_sweep", gen_sweep.library_defines(r)) for r in GEN_RULES + PLANE_RULES}
     libs |= {("packed_sweep", packed_sweep.library_defines(r)) for r in BINARY_RULES}
     libs |= {("packed_sweep", packed_sweep.library_defines(r, t))
              for r in TILE_RULES for t in PACKED_TILES}
-    libs |= {("gen_sweep", gen_sweep.tile_defines(t)) for t in GEN_TILES}
+    libs |= {("gen_sweep", gen_sweep.library_defines(r, t))
+             for r in GEN_TILE_RULES for t in GEN_TILES}
     libs |= {("ltl_sweep", ltl_sweep.tile_defines(t)) for t in LTL_TILES}
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: _build.load(*lib), sorted(libs)))
@@ -158,6 +160,44 @@ def test_gen_kernel_matches_plain(shape, rule):
         torch.cuda.synchronize()
         assert gen_sweep.gen_sweep.launches == before + 1
         assert torch.equal(got, plain), (shape, rule, k)
+
+
+# One rule at each plane count m = 2..8, and the plane sweep's ragged
+# shapes: H < 2k at the deepest sweeps and word counts of one and two
+# warps' spans (30 words a warp) plus or minus one.
+PLANE_RULES = ["brians-brain", "B2/S/7", "B2/S345/9", "B2/S345/17", "B2/S345/33",
+               "B2/S345/65", "B2/S345/200"]
+PLANE_RAGGED = [(1, 1), (3, 1), (5, 29), (9, 30), (13, 31), (40, 59), (33, 60), (17, 61), (70, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", PLANE_RULES)
+def test_gen_every_plane_count_every_depth(rule):
+    """Every m = 2..8 at every depth k = 1..31 (each its own kernel: skewed
+    levels in registers, or the centre planes in a lane's shared-memory
+    ring) at the ragged shapes, on random planes, invalid encodings
+    included."""
+    _need_gpu()
+    rule = resolve_rule(rule)
+    m = bitpack_gen.n_planes(rule.states)
+    before = gen_sweep.gen_sweep.launches
+    for i, shape in enumerate(PLANE_RAGGED):
+        x = bitpack_gen.planes_from_numpy(_words((m, *shape), 300 + i), "cuda")
+        for k in range(1, packed_sweep.MAX_STEPS_PER_SWEEP + 1):
+            got = gen_sweep.gen_sweep(x, rule, k)
+            plain = gen_sweep.gen_sweep_reference(x, rule, k)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain), (rule, shape, k)
+    assert gen_sweep.gen_sweep.launches == before + len(PLANE_RAGGED) * packed_sweep.MAX_STEPS_PER_SWEEP
+
+
+@pytest.mark.cuda
+def test_a_plane_library_refuses_another_rule():
+    _need_gpu()
+    x = bitpack_gen.planes_from_numpy(_words((2, 8, 4), 0), "cuda")
+    for other in ("star-wars", "wireworld"):
+        with pytest.raises(RuntimeError, match="built for rule"):
+            gen_sweep._launch(x, resolve_rule(other), 2, gen_sweep.library_defines("brians-brain"))
 
 
 def _ltl_band(r):
@@ -287,10 +327,10 @@ def test_worker_chunk_full_slab_matches_plain():
 
 @pytest.mark.cuda
 def test_deepest_sweep_on_every_card():
-    """The plane sweep opts into more than 48 KB of shared memory on each
-    card it launches on (the opt-in applies to one device): a k = 31 sweep,
-    which needs it, runs on every visible card; the packed sweep, which
-    keeps its levels in registers, beside it."""
+    """The deepest sweeps run on every visible card: the packed and plane
+    sweeps, which keep their levels in registers, and the plane sweep at
+    m = 8, whose deepest levels keep their centre planes in shared
+    memory."""
     _need_gpu()
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two or more NVIDIA GPUs")
@@ -305,6 +345,9 @@ def test_deepest_sweep_on_every_card():
         p = bitpack_gen.planes_from_numpy(planes, dev)
         got = gen_sweep.gen_sweep(p, "brians-brain", k)
         assert torch.equal(got, gen_sweep.gen_sweep_reference(p, "brians-brain", k)), dev
+        p8 = bitpack_gen.planes_from_numpy(_words((8, 100, 33), 33), dev)
+        got = gen_sweep.gen_sweep(p8, "B2/S345/200", k)
+        assert torch.equal(got, gen_sweep.gen_sweep_reference(p8, "B2/S345/200", k)), dev
 
 
 def _mesh_devices(n):
@@ -375,7 +418,8 @@ PACKED_TILES = [1, 8, 64, 128, 192, 256, 846]
 # At every packed tile, one library per rule and tile: Conway and HighLife
 # (each its own combine network) and Day & Night (the lookup-table combine).
 TILE_RULES = ["conway", "highlife", "day-and-night"]
-GEN_TILES = [8, 100, 384]  # 384: m = 2 at k = 31 is 2 x 2 x 446 x 128 B
+GEN_TILES = [1, 8, 32, 100, 384]
+GEN_TILE_RULES = ["wireworld", "brians-brain", "B2/S345/200"]
 LTL_TILES = [1, 16, 32, 64, 128, 200, 600]
 
 
@@ -401,14 +445,10 @@ def test_packed_tile_variants_match_plain(tile, k):
 def test_gen_tile_variants_match_plain(tile, k):
     _need_gpu()
     rng = np.random.default_rng(tile + k)
-    for name in ("wireworld", "brians-brain", "B2/S345/200"):
+    for name in GEN_TILE_RULES:
         rule = resolve_rule(name)
         m = bitpack_gen.n_planes(rule.states)
-        if not gen_sweep.tile_fits(m, tile, k):
-            with pytest.raises(ValueError, match="does not fit"):
-                gen_sweep.gen_sweep(torch.zeros((m, 8, 1), dtype=torch.int32, device="cuda"),
-                                    rule, k, tile_rows=tile)
-            continue
+        assert gen_sweep.tile_fits(tile, k)  # any tile, at every m
         for shape in SHAPES:
             x = bitpack_gen.planes_from_numpy(
                 rng.integers(0, 2**32, size=(m, *shape), dtype=np.uint32), "cuda"
@@ -437,8 +477,9 @@ def test_ltl_tile_variants_match_plain(tile):
 def test_launchers_refuse_a_tile_past_shared_memory():
     """The C launchers refuse what the wrappers refuse before them, and
     launch nothing: a board whose strips pass the grid's 65535 rows of
-    blocks (the packed and LtL tiles need no more shared memory at one
-    tile than another), and for LtL a radius past 10."""
+    blocks (no kernel needs more shared memory at one tile than another),
+    for LtL a radius past 10, and for the plane sweep a depth past 31, a
+    plane count not its rule's, and an output that is its input."""
     import ctypes
 
     _need_gpu()
@@ -459,6 +500,14 @@ def test_launchers_refuse_a_tile_past_shared_memory():
                                 ranges.data_ptr(), 1, stream) != 0
     assert lib.ltl_sweep_launch(board.data_ptr(), dst.data_ptr(), 64, 16, 11,
                                 ranges.data_ptr(), 1, stream) != 0
+    planes = bitpack_gen.planes_from_numpy(_words((2, 65536, 1), 2), "cuda")
+    after = torch.empty_like(planes)
+    launch = gen_sweep._launcher(gen_sweep.library_defines("brians-brain", 1)).launch
+    assert launch(planes.data_ptr(), after.data_ptr(), 2, 65535, 1, 31, stream) == 0
+    assert launch(planes.data_ptr(), after.data_ptr(), 2, 65536, 1, 31, stream) != 0
+    assert launch(planes.data_ptr(), after.data_ptr(), 2, 64, 1, 32, stream) != 0
+    assert launch(planes.data_ptr(), after.data_ptr(), 3, 64, 1, 4, stream) != 0
+    assert launch(planes.data_ptr(), planes.data_ptr(), 2, 64, 1, 4, stream) != 0
     torch.cuda.synchronize()
 
 

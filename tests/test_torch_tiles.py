@@ -50,6 +50,9 @@ def launches(monkeypatch):
 
 
 CONWAY_KEY = ("-DRULE_BIRTH=0x8", "-DRULE_SURVIVE1=0x18", "-DRULE_COMBINE=0xc5068817")
+# WireWorld's excite on 1 or 2 heads, (b0 ^ b1) & ~b2: one LOP3 over b0..b2.
+WIRE_KEY = ("-DRULE_BIRTH=0x6", "-DRULE_SURVIVE1=0x0", "-DRULE_STATES=4",
+            "-DRULE_WIREWORLD=1", "-DRULE_COMBINE=0x8814")
 
 
 @pytest.mark.parametrize(
@@ -70,9 +73,17 @@ def test_packed_tile_reaches_the_launcher(launches, tile, want):
 
 
 @pytest.mark.parametrize(
-    "tile,want", [(None, ()), (128, ("-DTILE_ROWS=128",)), (40, ("-DTILE_ROWS=40",))]
+    "tile,want",
+    [
+        (None, WIRE_KEY),
+        (gen_sweep.DEFAULT_TILE_ROWS, WIRE_KEY),
+        (128, (*WIRE_KEY, "-DTILE_ROWS=128")),
+        (40, (*WIRE_KEY, "-DTILE_ROWS=40")),
+    ],
 )
 def test_plane_tile_reaches_the_launcher(launches, tile, want):
+    """The library key is the rule's masks, states, WireWorld flag and
+    combine network, then the tile (none for the default one)."""
     gen_sweep.gen_multi_step_fn("wireworld", 10, tile_rows=tile)(_meta((2, 64, 2)))
     assert launches == [("gen_sweep", want)]
 
@@ -107,29 +118,34 @@ def test_defines_select_the_library(monkeypatch):
         def __call__(self, birth, survive1, tile):  # byref arguments
             tile._obj.value = packed_sweep.DEFAULT_TILE_ROWS
 
+    class GenVariant(Fn):
+        def __call__(self, birth, survive1, states, wire, tile):
+            tile._obj.value = gen_sweep.DEFAULT_TILE_ROWS
+
     def fake_load(name, defines=()):
         asked.append((name, defines))
         lib = types.SimpleNamespace(
             packed_sweep_launch=Fn(), packed_sweep_variant=Variant(), gen_sweep_launch=Fn(),
+            gen_sweep_variant=GenVariant(),
             ltl_sweep_launch=Fn(), ltl_sweep_tile_rows=Fn(ltl_sweep.DEFAULT_TILE_ROWS),
         )
         return _build.Built(lib, 0.0, "")
 
     monkeypatch.setattr(_build, "load", fake_load)
-    for loader in (packed_sweep._launcher, gen_sweep._library, ltl_sweep._library):
+    for loader in (packed_sweep._launcher, gen_sweep._launcher, ltl_sweep._library):
         loader.cache_clear()
     try:
         packed_sweep._launcher(packed_sweep.library_defines("conway", 64))
         packed_sweep._launcher(packed_sweep.library_defines("highlife"))
-        gen_sweep._library(gen_sweep.tile_defines(32))
+        gen_sweep._launcher(gen_sweep.library_defines("wireworld", 32))
         ltl_sweep._library(ltl_sweep.tile_defines(128))
     finally:
-        for loader in (packed_sweep._launcher, gen_sweep._library, ltl_sweep._library):
+        for loader in (packed_sweep._launcher, gen_sweep._launcher, ltl_sweep._library):
             loader.cache_clear()
     assert asked == [
         ("packed_sweep", (*CONWAY_KEY, "-DTILE_ROWS=64")),
         ("packed_sweep", ("-DRULE_BIRTH=0x48", "-DRULE_SURVIVE1=0x18", "-DRULE_COMBINE=0xa0490836")),
-        ("gen_sweep", ("-DTILE_ROWS=32",)),
+        ("gen_sweep", (*WIRE_KEY, "-DTILE_ROWS=32")),
         ("ltl_sweep", ("-DTILE_ROWS=128",)),
     ]
 
@@ -186,7 +202,7 @@ def test_mesh_passes_pallas_block_rows(monkeypatch, rule, fn):
     [
         # 70000 one-row tiles pass the grid's 65535 rows of blocks.
         (dict(rule="conway", pallas_block_rows=1, height=70_000), "does not fit the packed sweep"),
-        (dict(rule="B2/S345/200", pallas_block_rows=120), "does not fit a block of 8 planes"),
+        (dict(rule="B2/S345/200", pallas_block_rows=1, height=70_000), "does not fit the plane sweep"),
         (dict(rule="bugs", pallas_block_rows=1, height=70_000), "does not fit the LtL kernel"),
     ],
 )
@@ -198,10 +214,18 @@ def test_infeasible_tiles_raise_when_the_run_is_built(kw, match):
 
 
 def test_tile_rules_of_the_redesigned_kernels():
-    """The packed sweep keeps every level in registers and the LtL step a
-    ring of 2R+1 rows per lane in shared memory (10.5 KB at R = 10, under
-    48 KB at any tile), so only the depth or radius and the grid's 65535
-    rows of tiles bound a variant."""
+    """The packed and plane sweeps keep their levels in registers (the
+    plane sweep's deepest levels at large m in a lane's own shared-memory
+    ring, the same at every tile) and the LtL step a ring of 2R+1 rows per
+    lane in shared memory (10.5 KB at R = 10, under 48 KB at any tile), so
+    only the depth or radius and the grid's 65535 rows of tiles bound a
+    variant, at every plane count."""
+    assert gen_sweep.tile_fits(1, 31, 65535) and not gen_sweep.tile_fits(1, 31, 65536)
+    assert gen_sweep.tile_fits(None, 31, 65535 * gen_sweep.DEFAULT_TILE_ROWS)
+    assert gen_sweep.tile_fits(4096, 1) and not gen_sweep.tile_fits(0, 10)
+    assert not gen_sweep.tile_fits(64, 32)
+    with pytest.raises(ValueError, match="does not fit the plane sweep"):
+        gen_sweep.gen_sweep(_meta((8, 65536, 1)), "B2/S345/200", 4, tile_rows=1)
     assert packed_sweep.tile_fits(1, 31, 65535) and not packed_sweep.tile_fits(1, 31, 65536)
     assert packed_sweep.tile_fits(2, 31, 65535 * 2) and not packed_sweep.tile_fits(2, 31, 65535 * 2 + 1)
     assert packed_sweep.tile_fits(None, 10, 65536) and packed_sweep.tile_fits(4096, 1)
