@@ -19,6 +19,10 @@ HBM_BYTES_PER_S = 3.35e12
 # and bitwise logic; a LOP3 (any three-input logic function) or a funnel
 # shift is one such result.
 INT32_OPS_PER_CLOCK_PER_SM = 64
+# NVIDIA H100 SXM data sheet, dense (no sparsity): int8 and bf16 on the
+# tensor cores; float32 outside them (the f32 matmul lane runs at full
+# float32, never TF32).
+GEMM_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 
 def nvidia_smi(query: str) -> str:
@@ -93,6 +97,18 @@ def ltl_bound(h: int, w: int, rule, int32_ops_per_s: float) -> Dict:
 
     bytes_ms = 2 * h * w / HBM_BYTES_PER_S * 1e3
     ops_ms = ops_per_cell(rule) * h * w / int32_ops_per_s * 1e3
+    return _bound(bytes_ms, ops_ms)
+
+
+def matmul_bound(plan) -> Dict:
+    """The least time one banded-matmul generation (``MatmulPlan``) could
+    take: the board read and written once (uint8) over HBM, or the two
+    passes' multiply-adds (two operations each) at the lane's dense peak,
+    whichever is larger."""
+    h, r, wd = plan.height, plan.radius, plan.packed_width
+    macs = h * (plan.row_tile + 2 * r) * (wd + 2 * r) + h * (plan.col_tile + 2 * r) * wd
+    bytes_ms = 2 * h * plan.width / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * macs / GEMM_OPS_PER_S[plan.mode] * 1e3
     return _bound(bytes_ms, ops_ms)
 
 

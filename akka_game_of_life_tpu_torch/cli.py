@@ -172,7 +172,48 @@ def _add_stepping(p: argparse.ArgumentParser) -> None:
         "rules, plane sweep for Generations/WireWorld, LtL step for "
         "Larger-than-Life boxes; auto runs dense on widths not a multiple "
         "of 32 and for the LtL diamond); bitpack: the plain packed/plane "
-        "step; dense: the plain dense stencil; matmul is not ported yet",
+        "step; dense: the plain dense stencil; matmul: neighbour counts as "
+        "banded matrix products (any box-neighbourhood rule incl. radius-R "
+        "LtL; one device)",
+    )
+    g = p.add_argument_group(
+        "activity-gated sparse stepping",
+        "skip the dead parts of the board (run only; the frontend parses "
+        "and ignores them, as the JAX frontend does)",
+    )
+    g.add_argument(
+        "--sparse-kernel", choices=["on", "off"], default=None,
+        help="a per-block activity bitmap gates which blocks the stepper "
+        "advances: a block steps only if it or a neighbour changed last "
+        "chunk (radius-1 rules, one device; default off)",
+    )
+    g.add_argument(
+        "--sparse-block", type=int, default=None, metavar="B",
+        help="gating block side in cells (default 128; clamped to the "
+        "largest common divisor of the board sides)",
+    )
+    g.add_argument(
+        "--sparse-threshold", type=float, default=None, metavar="F",
+        help="dense escape: above this active-block fraction the chunk "
+        "steps the whole board and only the change bitmap is recomputed "
+        "(default 0.5)",
+    )
+    g = p.add_argument_group(
+        "logarithmic fast-forward",
+        "jump T epochs of an XOR-linear (odd-rule) board in O(log T) roll "
+        "passes instead of O(T) steps (run only; the frontend parses and "
+        "ignores them); non-linear rules are refused",
+    )
+    g.add_argument(
+        "--ff-enabled", choices=["on", "off"], default=None,
+        help="master switch (default on): off makes Simulation.fast_forward "
+        "refuse",
+    )
+    g.add_argument(
+        "--ff-certify-steps", type=int, default=None, metavar="T",
+        help="jump-vs-iterate digest certification per jump (default 8): "
+        "min(T, jump span) epochs also run through the dense stepper and "
+        "the digests must agree; 0 skips",
     )
 
 
@@ -228,6 +269,14 @@ def _run_parser(sub) -> argparse.ArgumentParser:
         "--dump-rle", metavar="PATH",
         help="write the final board as a Golly/LifeWiki .rle file (O(board) "
         "host fetch)",
+    )
+    p.add_argument(
+        "--fast-forward", type=int, default=None, metavar="T",
+        help="jump to epoch T up front through the O(log T) linear-rule "
+        "fast-forward (XOR-linear rules only; refused otherwise), then run "
+        "the loop for any remaining --max-epochs.  T is an absolute epoch "
+        "like --max-epochs: a resumed run jumps only the remainder; prints "
+        "the landed epoch and its digest",
     )
     p.add_argument(
         "--device", type=_run_device, default="cuda",
@@ -444,6 +493,11 @@ def _run_overrides(args: argparse.Namespace) -> dict:
         **_obs_programs_overrides(args),
         "obs_defer": args.obs_defer,
         "log_file": args.log_file,
+        "sparse_kernel": _ON_OFF[args.sparse_kernel],
+        "sparse_block": args.sparse_block,
+        "sparse_threshold": args.sparse_threshold,
+        "ff_enabled": _ON_OFF[args.ff_enabled],
+        "ff_certify_steps": args.ff_certify_steps,
     }
     if args.inject_faults:
         out["fault_injection"] = {"enabled": True}
@@ -542,6 +596,21 @@ def _run_simulation(args: argparse.Namespace, cfg, sim) -> int:
     interrupted = False
     with sim, profiling.trace(args.trace_dir):
         try:
+            if args.fast_forward:
+                from akka_game_of_life_tpu_torch.ops.digest import format_digest
+
+                # An absolute target, like --max-epochs: a resumed run jumps
+                # only the remaining fast_forward - E.
+                try:
+                    ep = sim.fast_forward(max(0, args.fast_forward - sim.epoch))
+                except ValueError as e:
+                    raise SystemExit(f"--fast-forward: {e}")
+                print(
+                    f"fast-forwarded to epoch {ep}: "
+                    f"digest={format_digest(sim.board_digest())}",
+                    file=sim.observer.out,
+                    flush=True,
+                )
             # --max-epochs is the absolute end epoch: a resumed run advances
             # the remaining max_epochs - E.
             sim.advance(max(0, cfg.max_epochs - sim.epoch))
@@ -675,7 +744,7 @@ def _selftest_parser(sub) -> None:
         "through the public Simulation; one JSON line per check",
     )
     p.add_argument(
-        "--kernel", choices=[k for k in KERNEL_CHOICES if k != "matmul"],
+        "--kernel", choices=list(KERNEL_CHOICES),
         default="auto",
         help="kernel the checks drive (default auto — what `run` would pick)",
     )

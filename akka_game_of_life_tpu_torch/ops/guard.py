@@ -5,8 +5,8 @@ the same knob, so one ``GOL_INTERMEDIATE_CAP_MB`` bounds both packages.  A
 path that materializes off-board intermediates (the plain LtL window sums
 of ``ops/ltl.py``) prices them up front, compares against the cap and raises
 a ``ValueError`` that names the shapes, the cap and the knob that raises it,
-before anything is allocated.  The matmul family's 3-smooth width helper
-stays in the JAX package until that family is ported.
+before anything is allocated.  ``nearest_3smooth`` is the width the
+banded-matmul family's refusal suggests (``ops/matmul_stencil.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +36,27 @@ def plane_bytes(shape: Tuple[int, ...], itemsize: int) -> int:
     for dim in shape:
         total *= int(dim)
     return total
+
+
+def nearest_3smooth(n: int) -> int:
+    """The smallest 3-smooth width (2^a · 3^b with b ≥ 1 and a ≥ 5, so
+    32 | width keeps every packed layout eligible) that is ≥ ``n``: the pad
+    target the matmul family's refusal suggests when a power-of-two width
+    caps its f32 digit-packing depth at 2 (the depth must divide the width,
+    and a width with a factor of 3 packs 3 to 6 digits)."""
+    if n < 1:
+        raise ValueError(f"width must be positive, got {n}")
+    best = None
+    b = 1
+    while 3**b <= max(n, 96) * 2:
+        a = 5
+        while (3**b) << a < n:
+            a += 1
+        cand = (3**b) << a
+        if best is None or cand < best:
+            best = cand
+        b += 1
+    return best
 
 
 def require_intermediates_fit(

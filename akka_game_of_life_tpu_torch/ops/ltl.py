@@ -19,8 +19,9 @@ a radius wider than the board sees the board's periodic extension.
 
 This module is the plain version the CUDA LtL step (``ops/ltl_sweep.py``) is
 held against, and the dense stepper for LtL under ``kernel=dense`` (and for
-the diamond, which has no kernel).  ``engine="matmul"`` (the banded
-matrix-multiply family) is not ported yet and raises.
+the diamond, which has no kernel).  ``engine="matmul"`` counts with the
+banded matrix products of ``ops/matmul_stencil.py`` and applies this
+module's tables, so both engines give the same board bit for bit.
 """
 
 from __future__ import annotations
@@ -137,13 +138,14 @@ def step_padded_ltl(padded: torch.Tensor, rule) -> torch.Tensor:
 
 
 def step_ltl(state: torch.Tensor, rule, engine: str = "shift-add") -> torch.Tensor:
-    """One toroidal LtL step on an (H, W) uint8 board."""
+    """One toroidal LtL step on an (H, W) uint8 board.  ``engine`` is
+    ``"shift-add"`` (the separable passes above) or ``"matmul"`` (the
+    banded products, what ``kernel=matmul`` runs)."""
     rule = resolve_rule(rule)
     if engine == "matmul":
-        raise ValueError(
-            "ltl engine='matmul' (the banded matrix-multiply family) is not "
-            "ported to PyTorch yet; use engine='shift-add'"
-        )
+        from akka_game_of_life_tpu_torch.ops import matmul_stencil
+
+        return matmul_stencil.step_matmul(state, rule)
     if engine != "shift-add":
         raise ValueError(f"unknown ltl count engine {engine!r}")
     return step_padded_ltl(wrap_pad(state, rule.radius), rule)

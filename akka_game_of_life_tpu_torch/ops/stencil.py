@@ -25,11 +25,12 @@ MOORE_OFFSETS = tuple(
 
 
 def neighbor_counts(alive: torch.Tensor) -> torch.Tensor:
-    """Live Moore neighbours on a torus: ``alive`` is a (H, W) uint8 0/1
-    indicator; the result is uint8 in 0..8."""
+    """Live Moore neighbours on a torus: ``alive`` is a (..., H, W) uint8
+    0/1 indicator (a batch of boards rolls each on its own); the result is
+    uint8 in 0..8."""
     acc = torch.zeros_like(alive)
     for dy, dx in MOORE_OFFSETS:
-        acc = acc + torch.roll(alive, shifts=(dy, dx), dims=(0, 1))
+        acc = acc + torch.roll(alive, shifts=(dy, dx), dims=(-2, -1))
     return acc
 
 
@@ -81,7 +82,8 @@ def alive_mask(state: torch.Tensor) -> torch.Tensor:
 
 
 def step(state: torch.Tensor, rule) -> torch.Tensor:
-    """One toroidal step of a (H, W) uint8 board."""
+    """One toroidal step of a (H, W) uint8 board, or of each board of an
+    (N, H, W) batch (every kind but ltl)."""
     rule = resolve_rule(rule)
     if rule.kind == "ltl":
         from akka_game_of_life_tpu_torch.ops import ltl

@@ -5,14 +5,17 @@ fields the PyTorch port honours: the standalone run's knobs (the device
 mesh of one process, the kernels' tile, pacing, fault injection, deferred
 observation, the async checkpoint writer and the observability surface) and
 the cluster's (the ``frontend`` and ``backend`` roles, the in-process
-harness), with the JAX package's names, defaults and checks.  ``load_config``
-reads the same TOML or JSON files (``examples/headline-65536.toml`` loads
-unchanged) and accepts the same duration spellings ("5s", "3000ms").  A key
-the port does not support — the multi-process mesh (``distributed``,
-``coordinator_address``, ``num_processes``, ``process_id``),
-``sparse_kernel``, a ``serve_*``, federation ``frontend_*`` or ``ff_*`` knob,
-``backend`` (the per-cell actor engines), or any other — raises a
-``ValueError`` that names it, never a silent default.
+harness), with the JAX package's names, defaults and checks.  The standalone
+run also takes the linear-rule fast-forward (``ff_enabled``,
+``ff_certify_steps``) and activity-gated stepping (``sparse_kernel``,
+``sparse_block``, ``sparse_threshold``).  ``load_config`` reads the same
+TOML or JSON files (``examples/headline-65536.toml`` loads unchanged) and
+accepts the same duration spellings ("5s", "3000ms").  A key the port does
+not support — the multi-process mesh (``distributed``,
+``coordinator_address``, ``num_processes``, ``process_id``), a ``serve_*``
+or federation ``frontend_*`` knob, ``backend`` (the per-cell actor
+engines), or any other — raises a ``ValueError`` that names it, never a
+silent default.
 ``checkpoint_format = "orbax"`` and a non-zero ``pallas_vmem_limit_mb`` are
 refused by name too: the port's store is npz, and the card has no Mosaic
 VMEM budget (the kernels keep their tiles in registers and small
@@ -40,7 +43,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 # (the packed sweep, the plane sweep, the LtL step; auto runs the dense
 # stencil on widths that are not a multiple of 32 and for the LtL diamond),
 # bitpack through the plain packed/plane step, dense through the plain dense
-# stencil; matmul waits for a later port slice (the Simulation refuses it).
+# stencil, matmul through the banded matrix products (ops/matmul_stencil.py,
+# one device, box neighbourhoods).
 KERNEL_CHOICES = ("auto", "dense", "bitpack", "pallas", "matmul")
 
 _DURATION_RE = re.compile(
@@ -198,6 +202,23 @@ class SimulationConfig:
     # save durable when checkpoint() returns.
     checkpoint_async: bool = True
     tick_s: float = 0.0  # wall-clock pacing per chunk; 0 = free-running
+    # -- linear-rule fast-forward (ops/fastforward.py) -----------------------
+    # Master switch: Simulation.fast_forward refuses when off.
+    ff_enabled: bool = True
+    # Jump-vs-iterate certification: before a jump commits, min(T, this)
+    # epochs are also iterated through the dense stepper and the two digests
+    # must agree.  0 = skip.
+    ff_certify_steps: int = 8
+    # -- activity-gated sparse stepping (ops/sparse.py) ----------------------
+    # A block steps only if it or a block-ring neighbour changed last chunk
+    # (exact for radius-1 rules with steps_per_call <= the block).
+    sparse_kernel: bool = False
+    # Gating block side in cells (clamped to the largest common divisor of
+    # the board sides <= this, so blocks tile the torus).
+    sparse_block: int = 128
+    # Above this dilated active-block fraction the chunk steps the whole
+    # board and only recomputes the changed-block bitmap.
+    sparse_threshold: float = 0.5
     # -- observability (every role) ------------------------------------------
     metrics_file: Optional[str] = None
     metrics_port: int = 0
@@ -329,6 +350,19 @@ class SimulationConfig:
             )
         if self.tick_s < 0:
             raise ValueError(f"tick_s={self.tick_s} must be >= 0")
+        if self.ff_certify_steps < 0:
+            raise ValueError(
+                f"ff_certify_steps={self.ff_certify_steps} must be >= 0 "
+                f"(0 = skip jump-vs-iterate certification)"
+            )
+        if self.sparse_block < 1:
+            raise ValueError(
+                f"sparse_block={self.sparse_block} must be >= 1"
+            )
+        if not 0.0 <= self.sparse_threshold <= 1.0:
+            raise ValueError(
+                f"sparse_threshold={self.sparse_threshold} must be in [0, 1]"
+            )
         if self.retry_s <= 0:
             raise ValueError(f"retry_s={self.retry_s} must be > 0")
         if self.retry_max_s < self.retry_s:
@@ -406,6 +440,8 @@ CLUSTER_FIELDS = tuple(
         "obs_defer", "tick_s", "metrics_file", "metrics_port", "log_events",
         "trace_file", "flight_dir", "obs_programs", "obs_profile_max_s",
         "obs_profile_min_interval_s", "fault_injection", "role",
+        "ff_enabled", "ff_certify_steps", "sparse_kernel", "sparse_block",
+        "sparse_threshold",
         # Read by the cluster only; ``run`` takes it as the JAX run does.
         "obs_cost_interval_s",
     }

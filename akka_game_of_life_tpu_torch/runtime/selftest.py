@@ -6,8 +6,8 @@ Counterpart of ``akka_game_of_life_tpu/runtime/selftest.py``.
 the caller asks for it, prints one JSON line per check and exits non-zero on
 any failure.  Each line names the kernel the run resolved to (``sweep``,
 ``gen_sweep`` and ``ltl_sweep`` are the CUDA kernels on a card; ``bitpack``
-and ``dense`` the plain steppers).  ``kernel="matmul"`` is not ported: every
-check then fails by name.
+and ``dense`` the plain steppers; ``matmul`` the banded products, which
+have no sharded form, so ``sharded`` skips).
 
 Checks:
   gun-phase        Gosper gun period-30 phase on the selected kernel

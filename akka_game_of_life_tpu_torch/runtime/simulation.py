@@ -8,8 +8,12 @@ device in one of three layouts, as in the JAX package:
   (H, W/32) int32 words;
 - ``planes``: a Generations or WireWorld rule on such a width, (m, H, W/32)
   int32 bit planes, m = ceil(log2 S);
-- ``dense``: everything else — Larger-than-Life, odd widths, or an explicit
-  ``kernel=dense`` — one uint8 per cell.
+- ``dense``: everything else — Larger-than-Life, odd widths, an explicit
+  ``kernel=dense`` or ``kernel=matmul`` — one uint8 per cell;
+- ``sparse_kernel``: the dense cells as a host numpy array, which the
+  activity-gated engine (``ops/sparse.py``) updates in place; only the
+  active blocks' slabs (or, on a boiling board, the whole board) step on
+  the device.
 
 Every ``steps_per_call`` generations the run observes on the device
 (population of state 1, strided sample, probe window, digest) and
@@ -30,10 +34,21 @@ any rule, width not a multiple of 32   plain dense (``auto``; ``bitpack``/``pall
 =====================================  ===============  =====================
 
 ``kernel=dense`` runs any rule on the dense layout; ``bitpack`` raises for
-LtL and ``matmul`` is not ported.  This differs from the JAX package's
-``auto`` on a TPU, which keeps Generations on the XLA plane scan and LtL on
-XLA: the results are equal bit for bit, and on the card the plain versions
-are no path at all, so ``auto`` takes the kernels.
+LtL.  ``kernel=matmul`` runs any box-neighbourhood rule on one device
+through the banded matrix products (``ops/matmul_stencil.py``; the plan is
+priced through the guard when the run is built, so a diamond rule, a window
+that wraps onto itself or an over-cap board raises there).
+``sparse_kernel`` takes radius-1 rules under ``auto`` or ``dense`` on one
+device.  This differs from the JAX package's ``auto`` on a TPU, which keeps
+Generations on the XLA plane scan and LtL on XLA: the results are equal bit
+for bit, and on the card the plain versions are no path at all, so ``auto``
+takes the kernels.
+
+:meth:`Simulation.fast_forward` jumps an XOR-linear rule's board T epochs in
+O(log T) roll passes on its device (``ops/fastforward.py``), after
+certifying ``ff_certify_steps`` of them against the dense stepper; packed
+boards are unpacked, jumped and repacked, the sparse host board is copied
+to the device and back.
 
 The devices are the caller's choice: every visible card unless a device
 (``"cpu"``, ``"cuda:1"``) or a sequence of devices is passed; a sequence may
@@ -330,14 +345,31 @@ class Simulation:
         self.config = config
         self.devices = resolve_devices(device)
         self.rule = resolve_rule(config.rule)
-        # The LtL kernel has no sharded form: an explicit kernel=pallas for
-        # LtL pins one device, and with a mesh_shape _resolve_kernel raises.
-        unsharded = config.kernel == "pallas" and self.rule.kind == "ltl"
+        self._sparse = None
+        if config.sparse_kernel:
+            self._sparse = self._sparse_stepper_for(config)
+        # The LtL kernel, the banded products and the gated engine have no
+        # sharded form: an explicit kernel=pallas for LtL or kernel=matmul
+        # pins one device, and with a mesh_shape _resolve_kernel raises.
+        unsharded = (
+            (config.kernel == "pallas" and self.rule.kind == "ltl")
+            or config.kernel == "matmul"
+            or self._sparse is not None
+        )
         self._use_mesh = config.mesh_shape is not None or (
             len(self.devices) > 1 and not unsharded
         )
-        self.kernel = self._resolve_kernel()
-        if self.kernel in ("dense", "ltl_sweep"):
+        if self._sparse is not None:
+            # The gated engine owns the layout (dense cells on the host).
+            if config.kernel not in ("auto", "dense"):
+                raise ValueError(
+                    f"sparse_kernel steps the dense-layout gated engine; "
+                    f"kernel={config.kernel!r} conflicts (use auto or dense)"
+                )
+            self.kernel = "sparse"
+        else:
+            self.kernel = self._resolve_kernel()
+        if self.kernel in ("dense", "ltl_sweep", "matmul", "sparse"):
             self.layout = "dense"
         else:
             self.layout = "words" if self.rule.is_binary else "planes"
@@ -424,17 +456,70 @@ class Simulation:
         self.epoch = 0
         self.board = self._place(self._start_payload())
 
+    def _sparse_stepper_for(self, config: SimulationConfig):
+        """The gated engine for ``sparse_kernel``, after the JAX package's
+        checks, in its order: a bad combination fails here, naming the
+        knob, never mid-advance."""
+        from akka_game_of_life_tpu_torch.ops.sparse import SparseStepper, pick_block
+
+        if self.rule.radius != 1:
+            raise ValueError(
+                f"sparse_kernel gates radius-1 rules; {self.rule} "
+                f"(radius {self.rule.radius}) runs dense"
+            )
+        if config.mesh_shape is not None:
+            raise ValueError(
+                "sparse_kernel is a single-host engine (the gather/"
+                "scatter runs on the host board); unset mesh_shape/"
+                "distributed or disable sparse_kernel"
+            )
+        if config.obs_defer:
+            raise ValueError(
+                "sparse_kernel updates its host board in place between "
+                "chunks, so a deferred observation's handles could "
+                "alias mutated memory; obs_defer is a device-fetch "
+                "optimization the host engine does not need — disable "
+                "one of the two"
+            )
+        eff_block = pick_block(config.height, config.width, config.sparse_block)
+        if config.steps_per_call > eff_block:
+            raise ValueError(
+                f"steps_per_call={config.steps_per_call} exceeds the "
+                f"effective sparse block ({eff_block} cells for "
+                f"{config.height}x{config.width} with sparse_block="
+                f"{config.sparse_block}): the one-ring block dilation "
+                f"would miss influence"
+            )
+        return SparseStepper(
+            self.rule,
+            config.shape,
+            block=config.sparse_block,
+            threshold=config.sparse_threshold,
+            device=self.devices[0],
+        )
+
     def _resolve_kernel(self) -> str:
         """The stepper for this rule and width (module docstring tables):
         ``sweep``, ``gen_sweep`` or ``ltl_sweep`` (the CUDA kernels on a
-        CUDA device), or the plain ``bitpack`` and ``dense`` steppers."""
+        CUDA device), ``matmul`` (the banded products), or the plain
+        ``bitpack`` and ``dense`` steppers."""
         cfg, rule = self.config, self.rule
         kernel = cfg.kernel
         if kernel == "matmul":
-            raise ValueError(
-                "kernel='matmul' (the banded matrix-multiply family) is not "
-                "ported yet; use auto, pallas, bitpack or dense"
+            from akka_game_of_life_tpu_torch.ops import matmul_stencil
+
+            if self._use_mesh:
+                raise ValueError(
+                    "kernel=matmul is single-device (no sharded form); "
+                    "use kernel=dense on a mesh"
+                )
+            # Planned and priced here, so an infeasible run fails when it
+            # is built, naming the knob.
+            matmul_stencil.plan_matmul(
+                cfg.shape, rule.radius, "auto", rule.neighborhood,
+                self.devices[0].type,
             )
+            return kernel
         if rule.kind == "ltl":
             if kernel == "bitpack":
                 raise ValueError(
@@ -570,7 +655,10 @@ class Simulation:
         return payload
 
     def _place(self, payload: np.ndarray):
-        """A host payload on the run's device(s)."""
+        """A host payload on the run's device(s); the gated engine's board
+        stays on the host."""
+        if self._sparse is not None:
+            return np.ascontiguousarray(payload, dtype=np.uint8)
         if self.mesh is not None:
             return pmesh.shard_board(payload, self.mesh)
         if self.layout == "dense":
@@ -579,13 +667,42 @@ class Simulation:
 
     def _stepper(self, k: int) -> Callable:
         if k not in self._steppers:
-            self._steppers[k] = (
-                self._single_stepper(k) if self.mesh is None else self._mesh_stepper(k)
-            )
+            if self._sparse is not None:
+                self._steppers[k] = self._sparse_advance(k)
+            elif self.mesh is None:
+                self._steppers[k] = self._single_stepper(k)
+            else:
+                self._steppers[k] = self._mesh_stepper(k)
         return self._steppers[k]
+
+    def _sparse_advance(self, k: int) -> Callable:
+        """A k-epoch chunk of the gated engine, with its gauges after
+        every chunk: the active blocks, and the stepped and skipped
+        block-chunks (the skips are the engine's whole point)."""
+        sp = self._sparse
+        active_g = self.metrics.gauge("gol_sparse_active_blocks")
+        stepped_c = self.metrics.counter("gol_sparse_blocks_stepped_total")
+        skipped_c = self.metrics.counter("gol_sparse_blocks_skipped_total")
+        dense_c = self.metrics.counter("gol_sparse_dense_chunks_total")
+
+        def advance(board: np.ndarray) -> np.ndarray:
+            dense_before = sp.dense_chunks
+            out = sp.step(board, k)
+            active_g.set(sp.last_active_blocks)
+            stepped_c.inc(sp.last_stepped_blocks)
+            skipped_c.inc(sp.total_blocks - sp.last_stepped_blocks)
+            if sp.dense_chunks > dense_before:
+                dense_c.inc()
+            return out
+
+        return advance
 
     def _single_stepper(self, k: int) -> Callable:
         rule, tile = self.rule, self.tile_rows
+        if self.kernel == "matmul":
+            from akka_game_of_life_tpu_torch.ops import matmul_stencil
+
+            return matmul_stencil.matmul_multi_step_fn(rule, k, "auto", self.device)
         if self.kernel == "sweep":
             return packed_sweep.packed_multi_step_fn(rule, k, tile_rows=tile)
         if self.kernel == "gen_sweep":
@@ -653,14 +770,23 @@ class Simulation:
                 with self.tracer.span(
                     "sim.chunk", node=self._node, epoch=prev, chunk=chunk
                 ):
-                    with profiling.annotate_epochs("advance_chunk", self.epoch):
-                        new_board = self._stepper(chunk)(self.board)
-                    with _shield_sigint():
-                        # Atomic with respect to ^C: an interrupt
-                        # checkpoint never sees a stepped board labelled
-                        # with the previous epoch.
-                        self.board = new_board
-                        self.epoch += chunk
+                    if self._sparse is not None:
+                        # The gated engine writes the host board in place:
+                        # shield the whole chunk, or an interrupt mid-scatter
+                        # would checkpoint a half-stepped board.
+                        with _shield_sigint():
+                            with profiling.annotate_epochs("advance_chunk", self.epoch):
+                                self.board = self._stepper(chunk)(self.board)
+                            self.epoch += chunk
+                    else:
+                        with profiling.annotate_epochs("advance_chunk", self.epoch):
+                            new_board = self._stepper(chunk)(self.board)
+                        with _shield_sigint():
+                            # Atomic with respect to ^C: an interrupt
+                            # checkpoint never sees a stepped board labelled
+                            # with the previous epoch.
+                            self.board = new_board
+                            self.epoch += chunk
                 step_h.observe(time.perf_counter() - chunk_t0)
                 epochs_c.inc(chunk)
                 chunks_c.inc()
@@ -690,6 +816,76 @@ class Simulation:
         self._obs_resolve()
         return self.epoch
 
+    def fast_forward(self, epochs: int) -> int:
+        """Jump ``epochs`` generations in O(log epochs) roll passes on the
+        board's device: XOR-linear (odd-rule) rules only
+        (``ops/fastforward.py``).  Before the jump commits,
+        ``ff_certify_steps`` epochs are certified jump against iterate by
+        digest.  The checks run in the JAX package's order: the span, then
+        ``ff_enabled``, then linearity, each a ``ValueError``."""
+        from akka_game_of_life_tpu_torch.ops import fastforward
+
+        cfg = self.config
+        # The span first: refuse before the relayout and the certification
+        # do any work.
+        epochs = fastforward._require_span(epochs)
+        if epochs == 0:
+            return self.epoch
+        if not cfg.ff_enabled:
+            raise ValueError(
+                "fast_forward is disabled (ff_enabled=False / --ff-enabled "
+                "off); advance() iterates as usual"
+            )
+        fastforward.kernel_offsets(self.rule)  # the linearity refusal
+        t0 = time.perf_counter()
+        with self.tracer.span(
+            "sim.fastforward", node=self._node, epoch=self.epoch, epochs=epochs
+        ) as span:
+            board = self._dense_board()
+            cert = min(epochs, cfg.ff_certify_steps)
+            if cert:
+                dig_t0 = time.perf_counter()
+                try:
+                    digest = fastforward.certify_jump(board, self.rule, cert)
+                except RuntimeError:
+                    self.metrics.counter("gol_digest_mismatches_total").inc()
+                    raise
+                self._m_digest_seconds.observe(time.perf_counter() - dig_t0)
+                self._m_digest_checks.inc()
+                span.set(certified_steps=cert, digest=odigest.format_digest(digest))
+            jumped = self._from_dense(fastforward.fast_forward(board, self.rule, epochs))
+            # The recorded seconds cover the jump, not its enqueue.
+            self._sync()
+            with _shield_sigint():
+                # Atomic with respect to ^C, as in advance().
+                self.board = jumped
+                self.epoch += epochs
+        self.metrics.counter("gol_ff_jumps_total").inc()
+        self.metrics.counter("gol_ff_epochs_total").inc(epochs)
+        self.metrics.histogram("gol_ff_seconds").observe(time.perf_counter() - t0)
+        self.metrics.gauge("gol_epoch").set(self.epoch)
+        self.events.emit("fast_forward", epoch=self.epoch, epochs=epochs)
+        return self.epoch
+
+    def _dense_board(self) -> torch.Tensor:
+        """The board of a linear (binary) rule as one dense (H, W) uint8
+        tensor on the run's device: unpacked there from words, gathered from
+        a mesh, copied from the gated engine's host board."""
+        if self.mesh is not None or self._sparse is not None:
+            return torch.from_numpy(self.board_host()).to(self.device)
+        if self.layout == "words":
+            return bitpack.unpack(self.board)
+        return self.board
+
+    def _from_dense(self, dense: torch.Tensor):
+        """Inverse of :meth:`_dense_board`: the board in this run's
+        layout and placement."""
+        if self.mesh is not None or self._sparse is not None:
+            return self._place(self._pack(dense.cpu().numpy()))
+        if self.layout == "words":
+            return bitpack.pack(dense)
+        return dense
+
     def _sync(self) -> None:
         devices = self.mesh.distinct_devices() if self.mesh is not None else [self.device]
         for dev in devices:
@@ -717,15 +913,21 @@ class Simulation:
     # -- the board, one tile or a mesh of them ---------------------------------
 
     def _tiles(self) -> List[torch.Tensor]:
+        """The board as device tensors, one per mesh slot.  The gated
+        engine's host board is copied to the device (its next chunk writes
+        it in place)."""
+        if self._sparse is not None:
+            return [torch.from_numpy(self.board).to(self.device, copy=True)]
         return [self.board] if self.mesh is None else list(self.board)
 
-    def _cells_request(self, ys: np.ndarray, xs: np.ndarray) -> List[List[torch.Tensor]]:
+    def _cells_request(
+        self, ys: np.ndarray, xs: np.ndarray, tiles: List[torch.Tensor]
+    ) -> List[List[torch.Tensor]]:
         """The cells at the global rows ``ys`` × cell columns ``xs`` (sorted
         int arrays), cut on the device from the tiles that hold them, as
         bands of per-tile parts: O(len(ys)·len(xs)) to fetch."""
         rows, cols = self.mesh.shape if self.mesh is not None else (1, 1)
         th, tw = self.config.height // rows, self.config.width // cols
-        tiles = self._tiles()
         bands = []
         for r in range(rows):
             ly = ys[(ys >= r * th) & (ys < (r + 1) * th)] - r * th
@@ -745,7 +947,9 @@ class Simulation:
 
     def _cells(self, ys: np.ndarray, xs: np.ndarray) -> np.ndarray:
         """Host uint8 cells at the global rows ``ys`` × columns ``xs``."""
-        return self._join(_HostFetch(self._cells_request(ys, xs)).result())
+        if self._sparse is not None:
+            return self.board[np.ix_(ys, xs)]
+        return self._join(_HostFetch(self._cells_request(ys, xs, self._tiles())).result())
 
     def _tile_cells(self, tile: torch.Tensor, ly: np.ndarray, lx: np.ndarray) -> torch.Tensor:
         rows = torch.from_numpy(ly).to(tile.device)
@@ -761,17 +965,19 @@ class Simulation:
     def _host_layout(self) -> np.ndarray:
         """The board in its layout on the host (packed words and planes as
         uint32), gathered from the tiles on a mesh — O(board)."""
+        if self._sparse is not None:
+            return self.board.copy()
         if self.mesh is not None:
             return pmesh.gather(self.board, self.mesh)
         if self.layout == "dense":
             return self.board.cpu().numpy()
         return bitpack.words_to_numpy(self.board)
 
-    def _populations(self) -> List[torch.Tensor]:
+    def _populations(self, tiles: List[torch.Tensor]) -> List[torch.Tensor]:
         """Cells in state 1 (alive, or WireWorld's electron heads), one
         device scalar per tile."""
         out = []
-        for tile in self._tiles():
+        for tile in tiles:
             if self.layout == "dense":
                 out.append((tile == 1).sum(dtype=torch.int64))
             else:
@@ -779,7 +985,7 @@ class Simulation:
                 out.append(bitpack.population_rows(words).sum())
         return out
 
-    def _digest_parts(self) -> List[torch.Tensor]:
+    def _digest_parts(self, tiles: List[torch.Tensor]) -> List[torch.Tensor]:
         """The board digest's (2,) lanes, one part per tile (their sum mod
         2³² is the digest: ``digest.merge_lanes``)."""
         cfg = self.config
@@ -794,10 +1000,10 @@ class Simulation:
                 }[self.layout]()
             return self._digest.parts(self.board)
         if self.layout == "words":
-            return [odigest.digest_packed(self.board, cfg.width)]
+            return [odigest.digest_packed(tiles[0], cfg.width)]
         if self.layout == "planes":
-            return [odigest.digest_planes(self.board, cfg.width)]
-        return [odigest.digest_dense(self.board)]
+            return [odigest.digest_planes(tiles[0], cfg.width)]
+        return [odigest.digest_dense(tiles[0])]
 
     # -- observation -----------------------------------------------------------
 
@@ -820,18 +1026,21 @@ class Simulation:
         cfg = self.config
         strides = sample_strides(cfg.shape, cfg.render_max_cells)
         h, w = cfg.shape
+        tiles = self._tiles()
         tree = {
-            "pops": self._populations(),
+            "pops": self._populations(tiles),
             "view": (
-                self._cells_request(np.arange(0, h, strides[0]), np.arange(0, w, strides[1]))
+                self._cells_request(
+                    np.arange(0, h, strides[0]), np.arange(0, w, strides[1]), tiles
+                )
                 if render else None
             ),
             "win": None,
-            "digest": self._digest_parts() if cfg.obs_digest else None,
+            "digest": self._digest_parts(tiles) if cfg.obs_digest else None,
         }
         if self._probe_due(render):
             y0, y1, x0, x1 = cfg.probe_window
-            tree["win"] = self._cells_request(np.arange(y0, y1), np.arange(x0, x1))
+            tree["win"] = self._cells_request(np.arange(y0, y1), np.arange(x0, x1), tiles)
         return {"epoch": self.epoch, "strides": strides, "fetch": _HostFetch(tree)}
 
     def _obs_emit(self, rec: dict, t0: float, on_fetched=None) -> None:
@@ -882,7 +1091,7 @@ class Simulation:
     def board_digest(self) -> int:
         """The 64-bit digest of the current board (~8 fetched bytes per
         tile)."""
-        parts = _HostFetch(self._digest_parts()).result()
+        parts = _HostFetch(self._digest_parts(self._tiles())).result()
         return odigest.value(odigest.merge_lanes(parts))
 
     # -- failure and recovery --------------------------------------------------
@@ -915,8 +1124,11 @@ class Simulation:
             restored_epoch = self.epoch
             while self.epoch < target:
                 chunk = min(self.config.steps_per_call, target - self.epoch)
-                self.board = self._stepper(chunk)(self.board)
-                self.epoch += chunk
+                # The gated engine's in-place chunks get the main loop's
+                # shield (a torn board must never be checkpointed).
+                with _shield_sigint() if self._sparse is not None else contextlib.nullcontext():
+                    self.board = self._stepper(chunk)(self.board)
+                    self.epoch += chunk
         finally:
             if restored_epoch is not None:
                 recover_span.set(
@@ -948,8 +1160,14 @@ class Simulation:
         rule = self.rule.rulestring()
         epoch = self.epoch
         # Bind the snapshot now: the loop replaces self.board while an async
-        # save runs, and no stepper writes the tensor it was given.
-        board = self._host_layout() if self.mesh is not None else self.board
+        # save runs, and no stepper writes the tensor it was given.  The
+        # gated engine's host board is the one that is written in place:
+        # it is copied (as a mesh is gathered) before the writer sees it.
+        board = (
+            self._host_layout()
+            if self.mesh is not None or self._sparse is not None
+            else self.board
+        )
         layout = self.layout
         self.events.emit("checkpoint_requested", epoch=epoch, format="npz")
 
@@ -1021,7 +1239,7 @@ class Simulation:
 
     def board_host(self) -> np.ndarray:
         """The full board as host uint8 — O(board); for tests and small
-        boards."""
+        boards.  Always the caller's own array."""
         board = self._host_layout()
         if self.layout == "words":
             return bitpack.unpack_np(board)

@@ -40,7 +40,22 @@ through its CLI:
   a tile variant of the packed, plane or LtL kernel, every variant held
   bit-exact against its plain version; the headline then runs with the
   tuned tile and reaches the default tile's digests;
-- ``selftest --kernel auto`` and ``--kernel pallas`` on the card;
+- ``selftest --kernel auto``, ``--kernel pallas`` and ``--kernel matmul`` on
+  the card;
+- the banded-matmul stencil: one generation on each lane (f32, int8, bf16)
+  of Conway and ``bugs`` at 16384² and a radius-10 box rule at 12288², bit
+  for bit against the plain dense step (the f32 lane once more with TF32
+  switched on globally), timed beside the packed sweep or the LtL step;
+  ``run --kernel matmul`` reaching the ``bugs`` run's digests and a Conway
+  run's under ``--kernel pallas`` (with a resume), launching no CUDA
+  kernel, and refused by the guard at 65536²;
+- the fast-forward: replicator at 12288² jumped to T = 2³⁰ + 2¹⁴ − 1 (every
+  factor non-trivial), equal to the jump to T − 60 plus 60 epochs of the
+  packed sweep, and Fredkin's matmul jump on each lane against the roll
+  jump;
+- activity-gated stepping: a glider on a dead 16384² torus, gated and
+  ungated, with equal digests, skipped blocks and a gated checkpoint
+  resumed ungated;
 - the headline with the rest of ``run``: an injected crash replayed from
   the epoch-120 checkpoint (with ``--metrics-file`` and ``--log-events``),
   ``--obs-defer``, ``--checkpoint-sync`` against the default writer thread,
@@ -133,6 +148,30 @@ LTL_RUN = [
     "--obs-digest", "--checkpoint-every", "30", "--device", SINGLE,
 ]
 LTL_RESUME_FROM = 30
+# The banded-matmul stencil: every lane at Conway and bugs at 16384² and a
+# radius-10 box LtL at the 3-smooth 12288² (where bf16 rounding would show).
+MATMUL_LANES = ("f32", "int8", "bf16")
+MATMUL_CASES = [("conway", 16384), ("bugs", 16384), ("band-r10", 12288)]
+MATMUL_CONWAY_RUN = [
+    "--height", "16384", "--width", "16384", "--seed", "3", "--max-epochs", "60",
+    "--steps-per-call", "10", "--metrics-every", "10", "--obs-digest", "--device", SINGLE,
+]
+MATMUL_RESUME_FROM = 40  # one dense save (at 40), not two
+# The fast-forward at the 3-smooth 12288², where no factor of T cancels:
+# T = 2^30 + 2^14 - 1 has 15 factors of 8 rolls each (on 16384² the same T
+# jumps to the zero map).
+FF_SIDE = 12288
+FF_T = 2**30 + 2**14 - 1
+FF_ITERATE = 60
+FF_MATMUL_T = (2**10, 2**20 + 3)
+# Activity-gated stepping: one glider on a dead 16384² torus (the JAX
+# bench's sparse-dilute traffic), 64 epochs, 8 a call, 128-cell blocks.
+SPARSE_RUN = [
+    "--pattern", "glider", "--height", "16384", "--width", "16384", "--max-epochs", "64",
+    "--steps-per-call", "8", "--metrics-every", "8", "--obs-digest", "--sparse-block", "128",
+    "--device", SINGLE,
+]
+SPARSE_CHECKPOINT = 48
 
 # The cluster: the JAX package's own cluster scale (16384², two workers, one
 # 8192 x 16384 tile each), 10-epoch exchanges, digests every 30 epochs.
@@ -337,7 +376,8 @@ def build_all(card):
     libs = sorted(
         {("ltl_sweep", ())}
         | {("gen_sweep", gen_sweep.library_defines(rule)) for rule in GEN_RULES}
-        | {("packed_sweep", packed_sweep.library_defines(rule)) for rule in RULES}
+        | {("packed_sweep", packed_sweep.library_defines(rule))
+           for rule in RULES + ["replicator"]}
         | set(tune_libraries())
     )
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
@@ -710,6 +750,253 @@ def ltl_path(tmp: Path, card):
     return auto_counts["ltl_sweep"], dense, dense_s
 
 
+# -- the banded-matmul stencil, the fast-forward, sparse stepping ----------------
+
+
+@contextlib.contextmanager
+def tf32_everywhere():
+    """TF32 switched on globally for float32 products, as a caller might."""
+    import torch
+
+    prev = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _random_board(side: int, seed: int):
+    import torch
+
+    g = torch.Generator(device=SINGLE).manual_seed(seed)
+    return torch.randint(0, 2, (side, side), generator=g, device=SINGLE, dtype=torch.uint8)
+
+
+def matmul_lanes(card):
+    """One generation on each lane against the plain dense step on the
+    card, bit for bit (the f32 lane once more with TF32 on globally), with
+    each lane's time and bound beside the packed sweep's or the LtL step's
+    at the same size."""
+    import torch
+
+    from akka_game_of_life_tpu_torch import bench
+    from akka_game_of_life_tpu_torch.ops import (
+        bitpack, ltl_sweep, matmul_stencil as ms, packed_sweep, stencil,
+    )
+    from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
+
+    # A float32 product of 2^20 + 1 by ones: what TF32 does to a packed word.
+    x = torch.full((64, 64), float(2**20 + 1), device=SINGLE)
+    with tf32_everywhere():
+        tf32_sum = float(torch.mm(x, torch.ones_like(x))[0, 0])
+    out = {}
+    for seed, (name, side) in enumerate(MATMUL_CASES):
+        rule = ltl_band(10) if name == "band-r10" else resolve_rule(name)
+        board = _random_board(side, seed)
+        plain = stencil.step(board, rule)
+        plain_ms = bench.time_ms(lambda: stencil.step(board, rule), reps=2, warmup=1)
+        lanes = {}
+        for lane in MATMUL_LANES:
+            plan = ms.plan_matmul((side, side), rule.radius, lane, "box", "cuda")
+            got = ms.step_matmul(board, rule, lane)
+            torch.cuda.synchronize()
+            check(torch.equal(got, plain), f"matmul {lane} lane, {name} {side}²: != the plain step")
+            lanes[lane] = {
+                "ms": bench.time_ms(lambda: ms.step_matmul(board, rule, lane), reps=5, warmup=1),
+                "plan": {"digits": plan.digits, "base": plan.base, "row_tile": plan.row_tile,
+                         "col_tile": plan.col_tile, "est_bytes": plan.est_bytes},
+                **bench.matmul_bound(plan),
+            }
+            del got
+        with tf32_everywhere():
+            got = ms.step_matmul(board, rule, "f32")
+            torch.cuda.synchronize()
+            check(torch.equal(got, plain), f"matmul f32 lane with TF32 on, {name}: != the plain step")
+        del got
+        if rule.kind == "ltl":
+            kernel = "ltl_sweep"
+            kernel_ms = bench.time_ms(lambda: ltl_sweep._launch(board, rule), reps=10)
+        else:
+            kernel = "packed_sweep"
+            words = bitpack.pack(board)
+            k = packed_sweep.DEFAULT_STEPS_PER_SWEEP
+            kernel_ms = bench.time_ms(lambda: packed_sweep._launch(words, rule, k), reps=10) / k
+            del words
+        out[name] = {"side": side, "lanes": lanes, "kernel": kernel,
+                     "kernel_ms_per_generation": kernel_ms, "plain_ms": plain_ms}
+        emit("matmul_lanes", rule=name, radius=rule.radius, side=side, lanes=lanes,
+             f32_with_tf32_exact=True, kernel=kernel, kernel_ms_per_generation=kernel_ms,
+             plain_ms=plain_ms, auto_cuda_lane=ms.AUTO_CUDA_MODE,
+             tf32_rounds_a_packed_word=tf32_sum != 64.0 * (2**20 + 1),
+             card=card["name_power"])
+        del board, plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def matmul_run(tmp: Path, ltl_dense, card):
+    """``run --kernel matmul``: bugs reaches the bugs phase's digests; a
+    random Conway board reaches the packed sweep's, and resumes from its
+    epoch-40 checkpoint; no CUDA kernel launches; the guard refuses the
+    65536² board by name."""
+    from akka_game_of_life_tpu_torch import cli
+
+    zero_counts()
+    text, bugs_s = run_cli(["run", *LTL_RUN, "--kernel", "matmul"], "ltl_matmul_run.log")
+    check(parse_run(text)[0] == ltl_dense, "bugs --kernel matmul: digests differ from the bugs phase")
+    check(sum(read_counts().values()) == 0, f"bugs --kernel matmul launched {read_counts()}")
+    runs = {}
+    for kernel in ("pallas", "matmul"):
+        zero_counts()
+        extra = ["--checkpoint-dir", str(tmp / "conway-matmul"), "--checkpoint-every",
+                 str(MATMUL_RESUME_FROM)] if kernel == "matmul" else []
+        text, run_s = run_cli(["run", *MATMUL_CONWAY_RUN, "--kernel", kernel, *extra],
+                              f"conway_{kernel}_run.log")
+        runs[kernel] = (parse_run(text)[0], read_counts(), run_s)
+    (want, sweep_counts, sweep_s), (got, mm_counts, mm_s) = runs["pallas"], runs["matmul"]
+    check(sorted(want) == list(range(10, 61, 10)), f"conway pallas metrics {sorted(want)}")
+    check(got == want, "conway --kernel matmul: digests differ from --kernel pallas")
+    check(sweep_counts["packed_sweep"] == 6, f"conway pallas launches {sweep_counts}")
+    check(sum(mm_counts.values()) == 0, f"conway --kernel matmul launched {mm_counts}")
+    resume = tmp / "conway-matmul-resume"
+    resume.mkdir()
+    shutil.copy(tmp / "conway-matmul" / f"ckpt_{MATMUL_RESUME_FROM:012d}.npz", resume)
+    text, _ = run_cli(["run", *MATMUL_CONWAY_RUN, "--kernel", "matmul",
+                       "--checkpoint-dir", str(resume)], "conway_matmul_resume.log")
+    resumed = parse_run(text)[0]
+    check(resumed.get(60) == want[60],
+          f"matmul resume from {MATMUL_RESUME_FROM}: {resumed.get(60)} != {want[60]}")
+    # The guard at the headline's size: refused when the run is built (the
+    # CLI exits non-zero on this ValueError).
+    try:
+        cli.main(["run", "--height", "65536", "--width", "65536", "--max-epochs", "1",
+                  "--kernel", "matmul", "--device", SINGLE])
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    check(refusal is not None and "kernel=matmul" in refusal
+          and "GOL_INTERMEDIATE_CAP_MB" in refusal, f"65536² matmul not refused: {refusal}")
+    emit("matmul_run", bugs_digests={e: d for e, (_, d) in ltl_dense.items()},
+         conway_digests={e: d for e, (_, d) in want.items()}, resumed_from=MATMUL_RESUME_FROM,
+         bugs_run_s=bugs_s, conway_run_s=mm_s, conway_pallas_run_s=sweep_s,
+         refusal_65536=refusal, card=card["name_power"])
+    return {"bugs_run_s": bugs_s, "conway_run_s": mm_s, "conway_pallas_run_s": sweep_s}
+
+
+_FF_LINE = re.compile(r"^fast-forwarded to epoch (\d+): digest=([0-9a-f]{16})$", re.M)
+
+
+def _prom_value(text: str, name: str) -> float:
+    m = re.search(rf"^{name} (\S+)$", text, re.M)
+    check(m is not None, f"metrics file lacks {name}")
+    return float(m.group(1))
+
+
+def _seconds_sum(name: str) -> float:
+    """A histogram's running sum in this process's registry (every in-process
+    run adds to it: read it before and after a run)."""
+    from akka_game_of_life_tpu_torch.obs import get_registry
+
+    return get_registry().histogram(name).labels().snapshot()["sum"]
+
+
+def fast_forward_phase(tmp: Path, card):
+    """The replicator jump to T at 12288² (certified on 8 steps), against
+    the jump to T - 60 plus 60 epochs of the packed sweep; the matmul jump
+    of Fredkin on each lane against the roll jump."""
+    import torch
+
+    from akka_game_of_life_tpu_torch import bench
+    from akka_game_of_life_tpu_torch.ops import fastforward, packed_sweep
+
+    plan = fastforward.jump_plan("replicator", FF_T, (FF_SIDE, FF_SIDE))
+    check(all(n > 1 for n in plan["factor_rolls"]), f"a trivial factor: {plan}")
+    ff = ["--rule", "replicator", "--height", str(FF_SIDE), "--width", str(FF_SIDE),
+          "--device", SINGLE]
+    ff_before, cert_before = _seconds_sum("gol_ff_seconds"), _seconds_sum("gol_digest_seconds")
+    zero_counts()
+    text, jump_run_s = run_cli(
+        ["run", *ff, "--fast-forward", str(FF_T), "--max-epochs", str(FF_T),
+         "--ff-certify-steps", "8"], "ff_jump.log")
+    landed = _FF_LINE.findall(text)
+    check(len(landed) == 1 and int(landed[0][0]) == FF_T, f"fast-forward landed {landed}")
+    check(sum(read_counts().values()) == 0, f"the jump launched {read_counts()}")
+    # The jump's seconds (unpack, certification, jump, repack) and the
+    # certification's share of them.
+    ff_s = _seconds_sum("gol_ff_seconds") - ff_before
+    cert_s = _seconds_sum("gol_digest_seconds") - cert_before
+    # One chunk of 60 through the packed sweep; a metrics line prints only at
+    # a multiple of the cadence, so the cadence is T itself.
+    zero_counts()
+    text, iterate_run_s = run_cli(
+        ["run", *ff, "--fast-forward", str(FF_T - FF_ITERATE), "--max-epochs", str(FF_T),
+         "--steps-per-call", str(FF_ITERATE), "--metrics-every", str(FF_T),
+         "--obs-digest"], "ff_iterate.log")
+    iterated, _ = parse_run(text)
+    check(iterated.get(FF_T, (None, None))[1] == landed[0][1],
+          f"jump(T) {landed[0][1]} != jump(T - {FF_ITERATE}) + {FF_ITERATE} epochs {iterated}")
+    check(read_counts()["packed_sweep"] == FF_ITERATE // packed_sweep.DEFAULT_STEPS_PER_SWEEP,
+          f"iterate launches {read_counts()}")
+
+    board = _random_board(FF_SIDE, 7)
+    lanes = {}
+    for t in FF_MATMUL_T:
+        want = fastforward.fast_forward(board, "fredkin", t)
+        roll_ms = bench.time_ms(lambda: fastforward.fast_forward(board, "fredkin", t), reps=2)
+        for lane in MATMUL_LANES:
+            fn = fastforward.jump_matmul_fn("fredkin", t, (FF_SIDE, FF_SIDE), lane, "cuda")
+            got = fn(board)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"matmul jump {lane} at t={t} != the roll jump")
+            lanes[f"{lane}@{t}"] = bench.time_ms(lambda: fn(board), reps=2)
+            del got, fn
+        lanes[f"rolls@{t}"] = roll_ms
+        del want
+    fastforward.jump_matmul_fn.cache_clear()
+    del board
+    emit("fast_forward", side=FF_SIDE, t=FF_T, jump_plan=plan, digest=landed[0][1],
+         ff_seconds=ff_s, certify_seconds=cert_s, jump_run_s=jump_run_s,
+         iterate_run_s=iterate_run_s, fredkin_jump_ms=lanes, card=card["name_power"])
+    return {"ff_seconds": ff_s, "certify_seconds": cert_s, "jump_plan": plan}
+
+
+def sparse_phase(tmp: Path, card):
+    """A glider on a dead 16384² torus with activity-gated stepping on and
+    off: equal digests at every cadence epoch, skipped blocks, no CUDA
+    kernel in the gated run, and its checkpoint resumed with gating off."""
+    runs = {}
+    for mode in ("on", "off"):
+        zero_counts()
+        prom = tmp / f"sparse-{mode}.prom"
+        extra = ["--checkpoint-dir", str(tmp / "sparse-on"), "--checkpoint-every",
+                 str(SPARSE_CHECKPOINT)] if mode == "on" else []
+        text, run_s = run_cli(["run", *SPARSE_RUN, "--sparse-kernel", mode,
+                               "--metrics-file", str(prom), *extra], f"sparse_{mode}.log")
+        runs[mode] = (parse_run(text)[0], read_counts(), run_s, prom.read_text())
+    (on, on_counts, on_s, on_prom), (off, off_counts, off_s, _) = runs["on"], runs["off"]
+    check(sorted(on) == list(range(8, 65, 8)), f"sparse metrics epochs {sorted(on)}")
+    check(on == off, "sparse on: digests differ from the ungated run")
+    check(sum(on_counts.values()) == 0, f"the gated run launched {on_counts}")
+    # The only run of this process that gates, so the file's totals are its.
+    check(off_counts["packed_sweep"] > 0, f"the ungated run launched {off_counts}")
+    skipped = _prom_value(on_prom, "gol_sparse_blocks_skipped_total")
+    stepped = _prom_value(on_prom, "gol_sparse_blocks_stepped_total")
+    dense_chunks = _prom_value(on_prom, "gol_sparse_dense_chunks_total")
+    check(skipped > 0, "sparse on skipped no block")
+    resume = tmp / "sparse-resume"
+    resume.mkdir()
+    shutil.copy(tmp / "sparse-on" / f"ckpt_{SPARSE_CHECKPOINT:012d}.npz", resume)
+    text, _ = run_cli(["run", *SPARSE_RUN, "--sparse-kernel", "off",
+                       "--checkpoint-dir", str(resume)], "sparse_resume.log")
+    check(parse_run(text)[0].get(64) == on[64], "sparse checkpoint resumed ungated: last digest differs")
+    emit("sparse", digests={e: d for e, (_, d) in on.items()}, on_run_s=on_s, off_run_s=off_s,
+         blocks_skipped=skipped, blocks_stepped=stepped, dense_chunks=dense_chunks,
+         resumed_from=SPARSE_CHECKPOINT, card=card["name_power"])
+    return {"on_run_s": on_s, "off_run_s": off_s}
+
+
 # -- the tune phase, the tuned tile, selftest -----------------------------------
 
 
@@ -851,18 +1138,20 @@ def selftest_phase(card):
     import torch
 
     cards = torch.cuda.device_count()
-    for kernel in ("auto", "pallas"):
+    for kernel in ("auto", "pallas", "matmul"):
         text, run_s = run_cli(["selftest", "--kernel", kernel, "--device", SELFTEST_DEVICE],
                               f"selftest_{kernel}.log")
         recs = {r["check"]: r for r in
                 (json.loads(line) for line in text.splitlines() if line.startswith("{"))}
         check(len(recs) == 7, f"selftest {kernel}: {sorted(recs)}")
         for name, rec in recs.items():
-            want = "skip" if name == "sharded" and cards < 2 else "pass"
+            # The banded products have no sharded form: matmul never meshes.
+            want = "skip" if name == "sharded" and (cards < 2 or kernel == "matmul") else "pass"
             check(rec["status"] == want, f"selftest {kernel} {name}: {rec}")
             check(rec["backend"] == SELFTEST_DEVICE, f"selftest {kernel} {name}: {rec}")
+        want = "matmul" if kernel == "matmul" else "sweep"
         for name in ("gun-phase", "oracle", "checkpoint", "chaos", "obs-defer"):
-            check(recs[name]["resolved"] == "sweep", f"selftest {kernel} {name}: {recs[name]}")
+            check(recs[name]["resolved"] == want, f"selftest {kernel} {name}: {recs[name]}")
         check(recs["families"]["resolved"] == "wireworld=gen_sweep, ltl=dense",
               f"selftest {kernel} families: {recs['families']}")
         emit("selftest", kernel=kernel, checks=list(recs.values()), run_s=run_s,
@@ -1819,6 +2108,10 @@ def main() -> int:
         launches["packed_sweep"] = headline["launches"]
         launches["gen_sweep"] = wireworld["launches"]
         launches["ltl_sweep"], ltl_dense, ltl_dense_s = phase("bugs", ltl_path, tmp, card)
+        phase("matmul_lanes", matmul_lanes, card)
+        phase("matmul_run", matmul_run, tmp, ltl_dense, card)
+        phase("fast_forward", fast_forward_phase, tmp, card)
+        phase("sparse", sparse_phase, tmp, card)
         phase("selftest", selftest_phase, card)
         devices = mesh_devices(card)
         launches["sharded_sweep"] = phase("mesh_headline", mesh_headline, devices, headline, tmp, card)

@@ -25,17 +25,11 @@ REFUSED = {
         "--coordinator": f"multi-process runs: {_NOT_PORTED}",
         "--num-processes": f"multi-process runs: {_NOT_PORTED}",
         "--process-id": f"multi-process runs: {_NOT_PORTED}",
-        "--fast-forward": f"the linear-rule fast-forward: {_NOT_PORTED}",
-        "--ff-enabled": f"the linear-rule fast-forward: {_NOT_PORTED}",
-        "--ff-certify-steps": f"the linear-rule fast-forward: {_NOT_PORTED}",
-        "--sparse-kernel": f"activity-gated stepping: {_NOT_PORTED}",
-        "--sparse-block": f"activity-gated stepping: {_NOT_PORTED}",
-        "--sparse-threshold": f"activity-gated stepping: {_NOT_PORTED}",
         "--sparse-cluster": "a cluster key, which the standalone run refuses by name",
     },
 }
 REFUSED["frontend"] = {
-    **{k: v for k, v in REFUSED["run"].items() if k not in ("--fast-forward", "--sparse-cluster")},
+    **{k: v for k, v in REFUSED["run"].items() if k != "--sparse-cluster"},
     "--serve-*": f"the serving plane: {_NOT_PORTED}",
     "--frontend-*": f"the frontends' federation: {_NOT_PORTED}",
 }
@@ -133,6 +127,15 @@ def test_new_flags_reach_the_config(role, overrides):
     assert (cfg.obs_profile_max_s, cfg.obs_profile_min_interval_s) == (5.0, 0.0)
     assert cfg.obs_cost_interval_s == 2.0
     assert cfg.checkpoint_format == "npz"
+    if role == "run":
+        # The steppers' flags (the frontend parses and ignores them, below).
+        args = _subparser(tcli.main, role).parse_args(argv + [
+            "--sparse-kernel", "on", "--sparse-block", "64", "--sparse-threshold", "0.25",
+            "--ff-enabled", "off", "--ff-certify-steps", "3",
+        ])
+        cfg = load_config(None, overrides(args))
+        assert (cfg.sparse_kernel, cfg.sparse_block, cfg.sparse_threshold) == (True, 64, 0.25)
+        assert (cfg.ff_enabled, cfg.ff_certify_steps) == (False, 3)
     orbax = _subparser(tcli.main, role).parse_args(argv[:6] + ["--checkpoint-format", "orbax"])
     with pytest.raises(ValueError, match="orbax"):
         load_config(None, overrides(orbax))
@@ -147,6 +150,7 @@ def test_the_frontend_ignores_the_run_only_flags():
     stepped = load_config(None, tcli._frontend_overrides(role.parse_args(base + [
         "--kernel", "pallas", "--steps-per-call", "8", "--mesh", "2x2",
         "--halo-width", "3", "--pallas-block-rows", "64", "--pallas-vmem-limit-mb", "16",
-        "--obs-defer", "--checkpoint-sync",
+        "--obs-defer", "--checkpoint-sync", "--sparse-kernel", "on", "--sparse-block", "64",
+        "--sparse-threshold", "0.25", "--ff-enabled", "off", "--ff-certify-steps", "3",
     ])))
     assert stepped == plain

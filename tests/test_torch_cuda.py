@@ -524,3 +524,106 @@ def test_simulation_tile_on_card_matches_cpu(rule):
         sim.advance(30)
         boards.append(sim.board_host())
     assert np.array_equal(*boards)
+
+
+# -- the banded-matmul stencil, the fast-forward and sparse stepping on the card
+
+
+def _band(r):
+    top = (2 * r + 1) ** 2 - 1
+    lo = r * (r + 1)
+    return Rule(frozenset(range(lo, min(lo + 8, top + 1))),
+                frozenset(range(max(0, lo - 2), min(lo + 11, top + 1))),
+                radius=r, kind="ltl", name=f"band-r{r}")
+
+
+def _states(shape, rule, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        rng.integers(0, resolve_rule(rule).states, shape, dtype=np.uint8)).to("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", ["f32", "int8", "bf16", "auto"])
+@pytest.mark.parametrize("rule,shape", [
+    ("conway", (5, 7)), ("conway", (16, 16)), ("brians-brain", (37, 53)),
+    ("wireworld", (64, 96)), ("bugs", (40, 48)), ("band-r10", (48, 96)),
+    ("conway", (1200, 520)), ("bugs", (1031, 777)),
+])
+def test_matmul_lanes_match_plain(lane, rule, shape):
+    """Every lane's counts are exact on the card (cuBLASLt's int8 shapes,
+    bf16 products with float32 results), and the f32 lane stays exact with
+    TF32 switched on globally."""
+    from akka_game_of_life_tpu_torch.ops import matmul_stencil as ms, stencil
+
+    _need_gpu()
+    rule = _band(10) if rule == "band-r10" else resolve_rule(rule)
+    board = _states(shape, rule, seed=sum(shape))
+    plain = stencil.step(board, rule)
+    assert torch.equal(ms.step_matmul(board, rule, lane), plain)
+    if lane == "f32":
+        prev = torch.get_float32_matmul_precision()
+        try:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.set_float32_matmul_precision("high")
+            assert torch.equal(ms.step_matmul(board, rule, lane), plain)
+        finally:
+            torch.set_float32_matmul_precision(prev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lane", ["f32", "int8", "bf16"])
+@pytest.mark.parametrize("t", [0, 5, 1024, 2**20 + 3])
+def test_matmul_jump_matches_the_roll_jump(lane, t):
+    from akka_game_of_life_tpu_torch.ops import fastforward
+
+    _need_gpu()
+    board = _states((96, 144), "fredkin", seed=t % 17)
+    want = fastforward.fast_forward(board, "fredkin", t)
+    got = fastforward.jump_matmul_fn("fredkin", t, (96, 144), lane, "cuda")(board)
+    assert got.device.type == "cuda" and torch.equal(got, want)
+    host = fastforward.fast_forward(board.cpu(), "fredkin", t)
+    assert torch.equal(want.cpu(), host)
+
+
+@pytest.mark.cuda
+def test_sparse_stepper_on_card_matches_cpu():
+    from akka_game_of_life_tpu_torch.ops import sparse
+    from akka_game_of_life_tpu_torch.utils.patterns import get_pattern, place
+
+    _need_gpu()
+    board = np.zeros((128, 128), np.uint8)
+    board = place(place(board, get_pattern("glider"), (10, 10)), get_pattern("r-pentomino"),
+                  (70, 70))
+    card = sparse.SparseStepper("conway", board.shape, block=16, threshold=0.4, device="cuda")
+    host = sparse.SparseStepper("conway", board.shape, block=16, threshold=0.4, device="cpu")
+    a, b = board.copy(), board.copy()
+    for _ in range(30):
+        a, b = card.step(a, 8), host.step(b, 8)
+        assert np.array_equal(a, b)
+        assert (card.dense_chunks, card.sparse_chunks, card.last_stepped_blocks) == (
+            host.dense_chunks, host.sparse_chunks, host.last_stepped_blocks)
+    assert card.dense_chunks > 1 and card.sparse_chunks > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(kernel="matmul", rule="bugs"), dict(kernel="matmul"),
+    dict(sparse_kernel=True, pattern="glider", sparse_block=16),
+    dict(rule="replicator", fast_forward=1000000), dict(rule="fredkin", kernel="dense",
+                                                        fast_forward=4096),
+])
+def test_steppers_on_card_match_cpu(kw):
+    _need_gpu()
+    kw = dict(kw)
+    jump = kw.pop("fast_forward", 0)
+    cfg = SimulationConfig(height=96, width=128, seed=5, steps_per_call=8, flight_dir="", **kw)
+    boards, digests = [], []
+    for device in ("cuda", "cpu"):
+        sim = Simulation(cfg, observer=BoardObserver(out=io.StringIO()), device=device)
+        if jump:
+            sim.fast_forward(jump)
+        sim.advance(24)
+        boards.append(sim.board_host())
+        digests.append(sim.board_digest())
+    assert np.array_equal(*boards) and digests[0] == digests[1]

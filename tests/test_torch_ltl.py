@@ -90,8 +90,16 @@ def test_guard_refuses_over_cap(monkeypatch):
 
 
 def test_matmul_engine_is_refused_by_name():
-    with pytest.raises(ValueError, match="matmul"):
-        ltl.step_ltl(torch.zeros((8, 8), dtype=torch.uint8), "bugs", engine="matmul")
+    """engine="matmul" runs the banded products (the shift-add engine's
+    board, as in the JAX package); what it cannot take, the diamond, and an
+    unknown engine are refused by name."""
+    board = torch.from_numpy(_soup(24, 40, seed=4, density=0.5))
+    np.testing.assert_array_equal(
+        ltl.step_ltl(board, "bugs", engine="matmul").numpy(),
+        ltl.step_ltl(board, "bugs").numpy(),
+    )
+    with pytest.raises(ValueError, match="kernel=matmul supports box"):
+        ltl.step_ltl(board, _rule(2, "diamond"), engine="matmul")
     with pytest.raises(ValueError, match="unknown ltl count engine"):
         ltl.step_ltl(torch.zeros((8, 8), dtype=torch.uint8), "bugs", engine="fft")
 

@@ -169,7 +169,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
 @pytest.mark.parametrize(
     "kw,match",
     [
-        (dict(kernel="matmul"), "not ported"),
+        (dict(kernel="matmul", mesh_shape=(1, 1)), "single-device"),
         (dict(kernel="pallas", rule="R2,B3-5,S2-6,NN"), "box neighborhoods"),
         (dict(kernel="bitpack", rule="bugs"), "totalistic and wireworld"),
         (dict(kernel="bitpack", width=48), "width % 32"),

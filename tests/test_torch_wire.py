@@ -218,8 +218,8 @@ def test_cluster_keys_load_like_jax(tmp_path):
     "key,value",
     [
         ("serve_cluster", True), ("serve_max_sessions", 4), ("frontend_seeds", "a:1"),
-        ("ff_enabled", False), ("num_processes", 2), ("distributed", True),
-        ("sparse_threshold", 0.5), ("sparse_kernel", True), ("backend", "actor"),
+        ("coordinator_address", "h:1"), ("num_processes", 2), ("distributed", True),
+        ("process_id", 1), ("serve_memo", True), ("backend", "actor"),
         ("pallas_vmem_limit_mb", 8),
     ],
 )
