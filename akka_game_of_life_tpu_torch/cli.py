@@ -6,7 +6,9 @@ names, with the flags the port honours.  ``run``, ``backend``, ``tune`` and
 ``selftest`` take ``--device`` (default ``cuda``; they raise when CUDA is
 absent rather than moving to the CPU); ``run --device cuda`` uses every
 visible card, sharding the board over them, and ``--mesh ROWSxCOLS`` asks
-for a mesh of exactly that many devices:
+for a mesh of exactly that many devices.  ``run --distributed --coordinator
+HOST:PORT --num-processes N --process-id R`` joins N processes into one
+mesh over every process's devices (rank 0 prints the run's lines):
 
     python -m akka_game_of_life_tpu_torch run --config examples/headline-65536.toml
     python -m akka_game_of_life_tpu_torch tune --size 16384 --rule wireworld
@@ -72,7 +74,9 @@ def _add_board(p: argparse.ArgumentParser) -> None:
     p.add_argument("--checkpoint-every", type=int)
     p.add_argument(
         "--checkpoint-format", choices=["npz", "orbax"],
-        help="npz (the port's store); orbax is refused by name",
+        help="npz (host writer, gathered board; the default) or orbax (async "
+        "per-shard saves on torch.distributed.checkpoint, every rank writing "
+        "its own tiles; resumable by this package only)",
     )
     p.add_argument("--render-every", type=int)
     p.add_argument(
@@ -237,6 +241,23 @@ def _add_obs_programs(p: argparse.ArgumentParser) -> None:
     )
 
 
+def _add_distributed(p: argparse.ArgumentParser) -> None:
+    """The multi-process flags, as the JAX package gives them to ``run``
+    and ``frontend`` (the frontend parses and ignores them)."""
+    p.add_argument(
+        "--distributed",
+        action="store_true",
+        default=None,
+        help="join a torch.distributed process group so the mesh spans "
+        "every process's devices; set the coordinator/rank flags, or "
+        "GOL_COORDINATOR / GOL_NUM_PROCESSES / GOL_PROCESS_ID (or torchrun's "
+        "MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK)",
+    )
+    p.add_argument("--coordinator", metavar="HOST:PORT")
+    p.add_argument("--num-processes", type=int)
+    p.add_argument("--process-id", type=int)
+
+
 def _obs_programs_overrides(args: argparse.Namespace) -> dict:
     return {
         "obs_programs": _ON_OFF[args.obs_programs],
@@ -283,6 +304,7 @@ def _run_parser(sub) -> argparse.ArgumentParser:
         help="cuda (every visible card; a mesh when there are several), "
         "cuda:N (one card) or cpu",
     )
+    _add_distributed(p)
     return p
 
 
@@ -391,6 +413,7 @@ def _frontend_parser(sub) -> argparse.ArgumentParser:
     p.add_argument("--rebalance-max-inflight", type=int, default=None, metavar="N")
     p.add_argument("--rebalance-deadline-s", default=None, metavar="DUR")
     _add_chaos_net(p)
+    _add_distributed(p)
     return p
 
 
@@ -498,6 +521,10 @@ def _run_overrides(args: argparse.Namespace) -> dict:
         "sparse_threshold": args.sparse_threshold,
         "ff_enabled": _ON_OFF[args.ff_enabled],
         "ff_certify_steps": args.ff_certify_steps,
+        "distributed": args.distributed,
+        "coordinator_address": args.coordinator,
+        "num_processes": args.num_processes,
+        "process_id": args.process_id,
     }
     if args.inject_faults:
         out["fault_injection"] = {"enabled": True}
@@ -525,8 +552,9 @@ def _check_dump_rle(args: argparse.Namespace, cfg) -> None:
 @contextlib.contextmanager
 def _metrics_endpoint(cfg, sim):
     """Live /metrics, /healthz, /trace, /programs, /cost and /profile for
-    the standalone run while its body executes."""
-    if not cfg.metrics_port:
+    the standalone run while its body executes (rank 0 of a multi-process
+    run)."""
+    if not cfg.metrics_port or sim.rank != 0:
         yield
         return
     from akka_game_of_life_tpu_torch.obs import MetricsServer
@@ -594,7 +622,8 @@ def _run_simulation(args: argparse.Namespace, cfg, sim) -> int:
     from akka_game_of_life_tpu_torch.runtime import profiling
 
     interrupted = False
-    with sim, profiling.trace(args.trace_dir):
+    trace_dir = args.trace_dir if sim.rank == 0 else None
+    with sim, profiling.trace(trace_dir):
         try:
             if args.fast_forward:
                 from akka_game_of_life_tpu_torch.ops.digest import format_digest
@@ -619,7 +648,9 @@ def _run_simulation(args: argparse.Namespace, cfg, sim) -> int:
             # completed chunk; make it durable so the run resumes from here.
             # Masked so a second signal cannot abort the promised save.
             interrupted = True
-            if sim.store is not None:
+            if sim.store is not None and sim.world == 1:
+                # Not across processes: checkpoint() is a collective the
+                # uninterrupted ranks never enter, so it would hang.
                 from akka_game_of_life_tpu_torch.runtime.signals import mask_interrupts
 
                 with mask_interrupts():
@@ -632,8 +663,8 @@ def _run_simulation(args: argparse.Namespace, cfg, sim) -> int:
                 )
             else:
                 print(
-                    f"interrupted at epoch {sim.epoch} (no durable save: no "
-                    f"checkpoint dir)",
+                    f"interrupted at epoch {sim.epoch} (no durable save: "
+                    f"{'no checkpoint dir' if sim.store is None else 'several processes'})",
                     file=sys.stderr,
                     flush=True,
                 )
@@ -652,7 +683,7 @@ def _run_simulation(args: argparse.Namespace, cfg, sim) -> int:
         final_dev_stats = get_programs().refresh_device_gauges()
     except Exception:  # noqa: BLE001 — observability must not fail the run
         final_dev_stats = {}
-    if args.trace_dir:
+    if trace_dir:
         for dev, stats in final_dev_stats.items():
             print(f"[profile] {dev}: {stats}", flush=True)
     if interrupted:
@@ -662,17 +693,19 @@ def _run_simulation(args: argparse.Namespace, cfg, sim) -> int:
         from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
         from akka_game_of_life_tpu_torch.utils.patterns import encode_rle
 
-        final = sim.board_host()
-        with open(args.dump_rle, "w", encoding="utf-8") as f:
-            f.write(encode_rle(final, resolve_rule(cfg.rule).rulestring()))
-        print(f"wrote {args.dump_rle}", flush=True)
+        final = sim.board_host()  # a collective across processes
+        if sim.rank == 0:
+            with open(args.dump_rle, "w", encoding="utf-8") as f:
+                f.write(encode_rle(final, resolve_rule(cfg.rule).rulestring()))
+            print(f"wrote {args.dump_rle}", flush=True)
     if cfg.render_every == 0 and cfg.metrics_every == 0:
         from akka_game_of_life_tpu_torch.runtime.render import render_ascii
 
         if final is None:
             final = sim.board_host()
-        print(f"epoch {sim.epoch}:")
-        print(render_ascii(final, cfg.render_max_cells))
+        if sim.rank == 0:
+            print(f"epoch {sim.epoch}:")
+            print(render_ascii(final, cfg.render_max_cells))
     return 0
 
 

@@ -1,6 +1,6 @@
 """The board sharded over a device mesh: one tile per mesh slot, halo
-exchange between neighbouring tiles (counterpart of
-``akka_game_of_life_tpu/parallel``, single-process form)."""
+exchange between neighbouring tiles, on one process or across several over
+``torch.distributed`` (counterpart of ``akka_game_of_life_tpu/parallel``)."""
 
 from akka_game_of_life_tpu_torch.parallel.mesh import (  # noqa: F401
     COL_AXIS,
@@ -32,6 +32,7 @@ from akka_game_of_life_tpu_torch.parallel.sweep_halo import (  # noqa: F401
     sharded_gen_sweep_step_fn,
     sharded_sweep_step_fn,
 )
+from akka_game_of_life_tpu_torch.parallel import distributed  # noqa: F401
 from akka_game_of_life_tpu_torch.parallel.digest import (  # noqa: F401
     sharded_dense_digest_fn,
     sharded_gen_digest_fn,

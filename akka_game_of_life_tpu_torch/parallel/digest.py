@@ -6,7 +6,9 @@ digested on its own device with its GLOBAL cell offsets, through
 ``ops/digest.py``'s ``digest_{dense,packed,planes}(…, row0, wordcol0)``
 (whose empty-block skip then works per tile), and the lanes merge with
 ``digest.merge_lanes``, where the JAX package uses ``psum``.  Two lanes per
-tile reach the host, whatever the board's size.  One function per sharded
+tile reach the host, whatever the board's size; on a mesh that spans
+processes each rank digests its own tiles and the lanes of every tile are
+all-gathered, so every rank folds the same digest.  One function per sharded
 layout:
 
 - :func:`sharded_dense_digest_fn`: dense uint8 (H, W) tiles
@@ -21,7 +23,7 @@ bit-identical to the single-device digest of the whole board.
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +36,7 @@ from akka_game_of_life_tpu_torch.ops.digest import (
     digest_planes,
     merge_lanes,
 )
+from akka_game_of_life_tpu_torch.parallel import distributed
 from akka_game_of_life_tpu_torch.parallel.mesh import GridMesh
 
 DigestFn = Callable[[Sequence[torch.Tensor]], np.ndarray]
@@ -50,14 +53,22 @@ def _origins(mesh: GridMesh, tile_rows: int, tile_cols: int) -> List[Tuple[int, 
 def _fold(mesh: GridMesh, tile_rows: int, tile_cols: int, lanes) -> DigestFn:
     origins = _origins(mesh, tile_rows, tile_cols)
 
-    def parts(tiles: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Each tile's (2,) lanes on its own device, not yet merged."""
+    def parts(tiles: Sequence[Optional[torch.Tensor]]) -> List[torch.Tensor]:
+        """Each local tile's (2,) lanes on its own device, not yet merged
+        (another rank's slots contribute nothing here)."""
         if len(tiles) != mesh.size:
             raise ValueError(f"{len(tiles)} tiles for a mesh of {mesh.size} slots")
-        return [lanes(t, r0, c0) for t, (r0, c0) in zip(tiles, origins)]
+        return [
+            lanes(t, r0, c0) for t, (r0, c0) in zip(tiles, origins) if t is not None
+        ]
 
-    def fn(tiles: Sequence[torch.Tensor]) -> np.ndarray:
-        return merge_lanes(p.cpu().numpy() for p in parts(tiles))
+    def fn(tiles: Sequence[Optional[torch.Tensor]]) -> np.ndarray:
+        local = [p.cpu().numpy() for p in parts(tiles)]
+        if mesh.multi_process:
+            # A few bytes per tile from every rank, so every rank folds the
+            # same lanes and prints the same digest.
+            local = [p for rank in distributed.all_gather_object(local) for p in rank]
+        return merge_lanes(local)
 
     fn.parts = parts
     return fn

@@ -11,6 +11,8 @@ exchange has the same two phases:
   mesh-column neighbours, which carries the corner cells with them.
 
 The wrap-around is the mesh-level torus, so the board is globally toroidal.
+On a mesh that spans processes each process pads and steps only its own
+tiles; :func:`ring_shift` moves the strips that cross to another process.
 A halo of width k buys k local steps per exchange.  This path steps any rule
 (Larger-than-Life included, R cells of halo per step) and any width; the
 packed layouts shard through :mod:`.packed_halo2d` and :mod:`.sweep_halo`.
@@ -24,16 +26,25 @@ import torch
 
 from akka_game_of_life_tpu_torch.ops.rules import Rule, resolve_rule
 from akka_game_of_life_tpu_torch.ops.stencil import step_padded
-from akka_game_of_life_tpu_torch.parallel.mesh import COL_AXIS, ROW_AXIS, GridMesh
+from akka_game_of_life_tpu_torch.parallel.mesh import (
+    COL_AXIS,
+    ROW_AXIS,
+    GridMesh,
+    first_local,
+    local_map,
+)
+
+
+_AXIS_ID = {ROW_AXIS: 0, COL_AXIS: 1}
 
 
 def ring_shift(
-    parts: Sequence[torch.Tensor],
+    parts: Sequence[Optional[torch.Tensor]],
     mesh: GridMesh,
     axis: str,
     direction: int,
-    out: Optional[Sequence[torch.Tensor]] = None,
-) -> List[torch.Tensor]:
+    out: Optional[Sequence[Optional[torch.Tensor]]] = None,
+) -> List[Optional[torch.Tensor]]:
     """Cyclically send each slot's part to the next slot along ``axis``.
 
     direction=+1 sends to the higher-indexed neighbour (each slot receives
@@ -42,29 +53,64 @@ def ring_shift(
     slot) with ``copy_``.  A cross-device ``copy_`` is ordered after the
     work queued on the source card's current stream and before the work
     queued after it on the destination's, so no further synchronisation is
-    needed."""
-    sources = [parts[mesh.neighbour(i, axis, -direction)] for i in range(mesh.size)]
-    if out is None:
-        return [src.to(dev) for src, dev in zip(sources, mesh.devices)]
-    for dst, src in zip(out, sources):
-        dst.copy_(src)
-    return list(out)
+    needed.
+
+    This is the mesh's one exchange primitive.  Only this process's slots
+    take part (another rank's entries are ``None``): a pair of local slots
+    copies as above, and the pairs that cross to another process travel in
+    one ``batch_isend_irecv`` per call (:func:`.distributed.exchange`),
+    tagged by axis, direction and receiving slot, posted by both ends in
+    receiving-slot order."""
+    n = mesh.size
+    sources = [mesh.neighbour(i, axis, -direction) for i in range(n)]
+    result: List[Optional[torch.Tensor]] = [None] * n
+    sends, recvs, recv_slots = [], [], []
+    base = (_AXIS_ID[axis] * 2 + (direction > 0)) * n
+    for i, j in enumerate(sources):
+        here, there = mesh.is_local(i), mesh.is_local(j)
+        if here and there:
+            if out is None:
+                result[i] = parts[j].to(mesh.devices[i])
+            else:
+                out[i].copy_(parts[j])
+                result[i] = out[i]
+        elif here:
+            recvs.append((mesh.owner(j), base + i, parts[i] if out is None else out[i]))
+            recv_slots.append(i)
+        elif there:
+            sends.append((mesh.owner(i), base + i, parts[j]))
+    if sends or recvs:
+        from akka_game_of_life_tpu_torch.parallel import distributed
+
+        for i, got in zip(recv_slots, distributed.exchange(sends, recvs)):
+            if out is None:
+                result[i] = got.to(mesh.devices[i])
+            else:
+                out[i].copy_(got)
+                result[i] = out[i]
+    return result
 
 
 def exchange_halo(
-    tiles: Sequence[torch.Tensor], mesh: GridMesh, width: int = 1
-) -> List[torch.Tensor]:
+    tiles: Sequence[Optional[torch.Tensor]], mesh: GridMesh, width: int = 1
+) -> List[Optional[torch.Tensor]]:
     """Pad each local (h, w) tile to (h+2k, w+2k) with its neighbours'
     cells."""
     k = width
     # Phase 1 — rows. My top halo is the bottom k rows of the tile above me.
-    top = ring_shift([t[-k:, :] for t in tiles], mesh, ROW_AXIS, +1)
-    bottom = ring_shift([t[:k, :] for t in tiles], mesh, ROW_AXIS, -1)
-    padded = [torch.cat(p, dim=0) for p in zip(top, tiles, bottom)]
+    top = ring_shift(local_map(lambda t: t[-k:, :], tiles), mesh, ROW_AXIS, +1)
+    bottom = ring_shift(local_map(lambda t: t[:k, :], tiles), mesh, ROW_AXIS, -1)
+    padded = [
+        None if t is None else torch.cat(p, dim=0)
+        for t, p in zip(tiles, zip(top, tiles, bottom))
+    ]
     # Phase 2 — columns of the row-padded tile: corners ride along.
-    left = ring_shift([p[:, -k:] for p in padded], mesh, COL_AXIS, +1)
-    right = ring_shift([p[:, :k] for p in padded], mesh, COL_AXIS, -1)
-    return [torch.cat(p, dim=1) for p in zip(left, padded, right)]
+    left = ring_shift(local_map(lambda p: p[:, -k:], padded), mesh, COL_AXIS, +1)
+    right = ring_shift(local_map(lambda p: p[:, :k], padded), mesh, COL_AXIS, -1)
+    return [
+        None if p is None else torch.cat(q, dim=1)
+        for p, q in zip(padded, zip(left, padded, right))
+    ]
 
 
 def _local_steps(tile: torch.Tensor, rule: Rule, k: int) -> torch.Tensor:
@@ -97,16 +143,16 @@ def sharded_step_fn(
     # radius-R rules (each step consumes R halo cells per side).
     pad = halo_width * rule.radius
 
-    def stepped(tiles: List[torch.Tensor]) -> List[torch.Tensor]:
-        h, w = tiles[0].shape
+    def stepped(tiles: List[Optional[torch.Tensor]]) -> List[Optional[torch.Tensor]]:
+        h, w = first_local(tiles).shape
         validate_tile_shape(
             mesh, (h * mesh.rows, w * mesh.cols), halo_width, rule.radius
         )
         for _ in range(n_exchanges):
-            tiles = [
-                _local_steps(p, rule, halo_width)
-                for p in exchange_halo(tiles, mesh, pad)
-            ]
+            tiles = local_map(
+                lambda p: _local_steps(p, rule, halo_width),
+                exchange_halo(tiles, mesh, pad),
+            )
         return tiles
 
     return stepped

@@ -31,11 +31,14 @@ from akka_game_of_life_tpu_torch.parallel.mesh import (
     COL_AXIS,
     ROW_AXIS,
     GridMesh,
+    first_local,
+    local_map,
     shard_board,
     tile_shape,
 )
 
-Tiles = List[torch.Tensor]
+# One entry per mesh slot; None where another process owns the slot.
+Tiles = List[Optional[torch.Tensor]]
 
 
 def word_halo_width(steps: int) -> int:
@@ -46,36 +49,36 @@ def word_halo_width(steps: int) -> int:
 
 def refresh_halos(padded: Tiles, mesh: GridMesh, halo_rows: int, halo_words: int) -> None:
     """One two-phase exchange, in place: refresh the ``halo_rows`` and
-    ``halo_words`` halo strips of every padded tile from its neighbours'
-    interiors."""
+    ``halo_words`` halo strips of every local padded tile from its
+    neighbours' interiors (another rank's entries are ``None``)."""
     hr, hw = halo_rows, halo_words
-    h_loc = padded[0].shape[-2] - 2 * hr
-    w_loc = padded[0].shape[-1] - 2 * hw
+    h_loc = first_local(padded).shape[-2] - 2 * hr
+    w_loc = first_local(padded).shape[-1] - 2 * hw
     # Phase 1 — word columns; my west halo is my left neighbour's
     # easternmost INTERIOR words.
     if hw:
         rows = slice(hr, hr + h_loc)
         ring_shift(
-            [p[..., rows, w_loc : w_loc + hw] for p in padded],
+            local_map(lambda p: p[..., rows, w_loc : w_loc + hw], padded),
             mesh, COL_AXIS, +1,
-            out=[p[..., rows, :hw] for p in padded],
+            out=local_map(lambda p: p[..., rows, :hw], padded),
         )
         ring_shift(
-            [p[..., rows, hw : 2 * hw] for p in padded],
+            local_map(lambda p: p[..., rows, hw : 2 * hw], padded),
             mesh, COL_AXIS, -1,
-            out=[p[..., rows, hw + w_loc :] for p in padded],
+            out=local_map(lambda p: p[..., rows, hw + w_loc :], padded),
         )
     # Phase 2 — full-width rows (the column halos just refreshed on the
     # neighbour ride along, so corner words arrive valid).
     ring_shift(
-        [p[..., h_loc : h_loc + hr, :] for p in padded],
+        local_map(lambda p: p[..., h_loc : h_loc + hr, :], padded),
         mesh, ROW_AXIS, +1,
-        out=[p[..., :hr, :] for p in padded],
+        out=local_map(lambda p: p[..., :hr, :], padded),
     )
     ring_shift(
-        [p[..., hr : 2 * hr, :] for p in padded],
+        local_map(lambda p: p[..., hr : 2 * hr, :], padded),
         mesh, ROW_AXIS, -1,
-        out=[p[..., hr + h_loc :, :] for p in padded],
+        out=local_map(lambda p: p[..., hr + h_loc :, :], padded),
     )
 
 
@@ -108,8 +111,9 @@ def _sharded_exchange_fn(
     writes, so the order of the copies within a phase does not matter, and
     a tile that is its own neighbour (a 1-long mesh axis) copies between
     disjoint views of itself.  Phase 2 reads the column halos phase 1 wrote:
-    on one device the stream orders them; across cards ``copy_`` does
-    (:func:`.halo.ring_shift`).  An advance that writes a fresh buffer
+    on one device the stream orders them; across cards ``copy_`` does, and
+    across processes the received strips are copied in before the call
+    returns (:func:`.halo.ring_shift`).  An advance that writes a fresh buffer
     (the sweeps) is fine: the views are taken anew at every exchange.
     """
     s = steps_per_exchange if steps_per_exchange is not None else halo_rows
@@ -129,20 +133,21 @@ def _sharded_exchange_fn(
             return padded
 
     def stepped(tiles: Tiles) -> Tiles:
-        for t in tiles:
-            check_tile(t)
-        h_loc, w_loc = tiles[0].shape[-2], tiles[0].shape[-1]
-        padded = []
-        for t in tiles:
+        local_map(check_tile, tiles)
+        h_loc, w_loc = first_local(tiles).shape[-2:]
+
+        def pad(t: torch.Tensor) -> torch.Tensor:
             p = t.new_zeros(t.shape[:-2] + (h_loc + 2 * hr, w_loc + 2 * hw))
             p[..., hr : hr + h_loc, hw : hw + w_loc].copy_(t)
-            padded.append(p)
+            return p
+
+        padded = local_map(pad, tiles)
         for _ in range(n_exchanges):
             refresh_halos(padded, mesh, hr, hw)
-            padded = [local_advance(p) for p in padded]
-        return [
-            p[..., hr : hr + h_loc, hw : hw + w_loc].contiguous() for p in padded
-        ]
+            padded = local_map(local_advance, padded)
+        return local_map(
+            lambda p: p[..., hr : hr + h_loc, hw : hw + w_loc].contiguous(), padded
+        )
 
     return stepped
 

@@ -29,7 +29,9 @@ the single-device path would run for s generations, so a prime s costs a
 few sweeps, not s one-generation ones.  On a CUDA tile every
 sweep launches the kernel (the ``tile_rows`` variant where one is given, as
 the TPU version took ``block_rows``); on a CPU tile the wrappers run their
-plain versions.  Nothing moves a tile or falls back.
+plain versions.  Nothing moves a tile or falls back.  On a mesh that spans
+processes each process sweeps its own tiles and the exchange carries the
+strips between processes; the plan is the same.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ import torch
 from akka_game_of_life_tpu_torch.ops import bitpack, gen_sweep, packed_sweep
 from akka_game_of_life_tpu_torch.ops.bitpack import LANE_BITS
 from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
-from akka_game_of_life_tpu_torch.parallel.mesh import GridMesh
+from akka_game_of_life_tpu_torch.parallel.mesh import GridMesh, first_local, local_map
 from akka_game_of_life_tpu_torch.parallel.packed_halo2d import (
     Tiles,
     _sharded_exchange_fn,
@@ -113,9 +115,8 @@ def _wire_sharded_sweep(
         return ExchangePlan(depths, s, word_halo_width(s) if mesh.cols > 1 else 0)
 
     def fn(tiles: Tiles) -> Tiles:
-        for t in tiles:
-            check(t)
-        key = tuple(tiles[0].shape[-2:])
+        local_map(check, tiles)
+        key = tuple(first_local(tiles).shape[-2:])
         if key not in loops:
             p = plan(key)
 

@@ -7,6 +7,8 @@ chunks of up to ``exchange_width`` epochs by a chunk engine:
 - ``engine="torch"`` (the default): :func:`_torch_engine` on the worker's
   device — binary multi-step chunks through the hand-written packed sweep
   (``csrc/packed_sweep.cu``) on a CUDA device, its plain version on the CPU;
+  a worker given several devices (or ``cuda`` with several visible cards)
+  row-shards each chunk's slab over them (:func:`_meshed_engine`);
 - ``engine="numpy"``: :func:`_np_chunk`, host stepping (the oracle).
 
 The data plane is peer-to-peer, byte-compatible with the JAX package's
@@ -20,9 +22,8 @@ PEER_PULL under decorrelated-jitter backoff and escalates with GATHER_FAILED
 after ``max_pull_retries``.
 
 Not carried over (refused by name): the ``swar``, ``actor`` and
-``actor-native`` engines, the serve plane and federation re-homing, and the
-multi-device row-sharded chunk.  ``P.PROFILE`` captures a
-``torch.profiler`` window on a thread of its own.
+``actor-native`` engines, and the serve plane and federation re-homing.
+``P.PROFILE`` captures a ``torch.profiler`` window on a thread of its own.
 """
 
 from __future__ import annotations
@@ -149,22 +150,29 @@ def _torch_engine(
     tensor); ``"off"`` pins the plain packed step loop on the device;
     ``"interpret"`` is refused — the CPU device plays that part.  There is
     no demotion: a kernel that fails to build or launch raises, and the
-    worker's error reaches the frontend."""
+    worker's error reaches the frontend.
+
+    ``device``: one device, or a sequence of them; a sequence of more than
+    one, or ``cuda``/None with more than one visible card, takes
+    :func:`_meshed_engine`."""
     import torch
 
     from akka_game_of_life_tpu_torch.obs.programs import registered_jit, stencil_cost
     from akka_game_of_life_tpu_torch.ops import bitpack, bitpack_gen, packed_sweep
     from akka_game_of_life_tpu_torch.ops import stencil
-    from akka_game_of_life_tpu_torch.runtime.simulation import resolve_device
+    from akka_game_of_life_tpu_torch.runtime.simulation import (
+        resolve_device,
+        resolve_devices,
+    )
 
     _check_pallas(pallas)
-    dev = resolve_device(device)
     use_sweep = pallas != "off"
-    plane_capable = (
-        not rule.is_binary
-        and (rule.is_totalistic or rule.kind == "wireworld")
-        and rule.states <= 256
-    )
+    plane_capable = _plane_capable(rule)
+    devices = resolve_devices(device)
+    if len(devices) > 1:
+        return _meshed_engine(rule, devices, use_sweep)
+    single = device is None or isinstance(device, (str, torch.device))
+    dev = resolve_device(device) if single else devices[0]
     compiled: Dict[tuple, Callable] = {}  # (steps, col_pad) → chunk fn
 
     def _chunk_fn(steps: int, col_pad: int):
@@ -216,6 +224,112 @@ def _torch_engine(
                 ),
             )
         return fn(np.ascontiguousarray(padded, dtype=np.uint8), halo)
+
+    return run
+
+
+def _plane_capable(rule: Rule) -> bool:
+    """Generations / WireWorld rules that step as bit planes."""
+    return (
+        not rule.is_binary
+        and (rule.is_totalistic or rule.kind == "wireworld")
+        and rule.states <= 256
+    )
+
+
+def _meshed_engine(
+    rule: Rule, devices, use_sweep: bool = True
+) -> Callable[[np.ndarray, int, int], np.ndarray]:
+    """A worker's chunk spread over its devices: the counterpart of the JAX
+    package's meshed ``_jax_engine`` branch.
+
+    The halo-padded (h+2k, w+2k) slab is row-padded to a multiple of the n
+    devices (the junk rows sit below the south halo; the toroidal wrap
+    feeds their garbage into the outermost halo rows, cut edges, and both
+    fronts move one row per step, so with ``steps <= halo`` the interior is
+    never reached), sharded over an (n, 1) :class:`~..parallel.mesh.GridMesh`
+    and advanced ``steps`` generations as a torus by the mesh's steppers:
+    binary chunks of at least 2 steps through ``sharded_sweep_step_fn`` (the
+    packed sweep on each CUDA tile), plane chunks through
+    ``sharded_gen_sweep_step_fn`` (the plane sweep), the rest through the
+    dense ``halo.sharded_step_fn``; ``use_sweep=False`` (``pallas="off"``)
+    pins the plain sharded packed and plane steps.  The tiles are gathered
+    and the interior cut.  The JAX package lets GSPMD shard an XLA scan
+    here; the port runs the sharded sweeps its mesh runs."""
+    import torch
+
+    from akka_game_of_life_tpu_torch.obs.programs import registered_jit, stencil_cost
+    from akka_game_of_life_tpu_torch.ops import bitpack, bitpack_gen
+    from akka_game_of_life_tpu_torch.parallel import halo as phalo
+    from akka_game_of_life_tpu_torch.parallel.mesh import GridMesh, gather, shard_board
+    from akka_game_of_life_tpu_torch.parallel.packed_halo2d import (
+        sharded_gen_step_fn,
+        sharded_packed2d_step_fn,
+    )
+    from akka_game_of_life_tpu_torch.parallel.sweep_halo import (
+        sharded_gen_sweep_step_fn,
+        sharded_sweep_step_fn,
+    )
+
+    n = len(devices)
+    mesh = GridMesh((n, 1), devices)  # every slot in this process
+    plane_capable = _plane_capable(rule)
+    compiled: Dict[tuple, Callable] = {}  # (steps, col_pad) → chunk fn
+
+    def _chunk_fn(steps: int, col_pad: int):
+        if rule.is_binary and steps >= 2:
+            pack, unpack = bitpack.pack, bitpack.unpack
+            step = (
+                sharded_sweep_step_fn(mesh, rule, steps_per_call=steps)
+                if use_sweep
+                else sharded_packed2d_step_fn(mesh, rule, steps_per_call=steps, halo_rows=1)
+            )
+        elif plane_capable and steps >= 2:
+            pack = lambda t: bitpack_gen.pack_gen(t, rule.states)  # noqa: E731
+            unpack = bitpack_gen.unpack_gen
+            step = (
+                sharded_gen_sweep_step_fn(mesh, rule, steps_per_call=steps)
+                if use_sweep
+                else sharded_gen_step_fn(mesh, rule, steps_per_call=steps, halo_rows=1)
+            )
+        else:
+            pack = unpack = None
+            step = phalo.sharded_step_fn(mesh, rule, steps_per_call=steps, halo_width=1)
+
+        def chunk(padded: np.ndarray, halo: int, h_out: int) -> np.ndarray:
+            tiles = shard_board(torch.from_numpy(padded), mesh)
+            if col_pad:
+                tiles = [torch.nn.functional.pad(t, (0, col_pad)) for t in tiles]
+            if pack is not None:
+                tiles = [unpack(t) for t in step([pack(t) for t in tiles])]
+            else:
+                tiles = step(tiles)
+            out = gather(tiles, mesh)
+            if col_pad:
+                out = out[:, :-col_pad]
+            return out[halo : halo + h_out, halo:-halo]
+
+        return chunk
+
+    def run(padded: np.ndarray, steps: int, halo: int) -> np.ndarray:
+        assert steps <= halo, (steps, halo)
+        h_out = padded.shape[0] - 2 * halo
+        pad = (-padded.shape[0]) % n
+        if pad:
+            padded = np.pad(padded, ((0, pad), (0, 0)))
+        vector = (rule.is_binary or plane_capable) and steps >= 2
+        col_pad = (-padded.shape[1]) % bitpack.LANE_BITS if vector else 0
+        key = (steps, col_pad)
+        fn = compiled.get(key)
+        if fn is None:
+            fn = compiled[key] = registered_jit(
+                "worker_chunk", ("meshed", rule.name, n, key),
+                _chunk_fn(*key),
+                cost=lambda p, _h, _o, _s=steps: stencil_cost(
+                    p.shape[-2], p.shape[-1], _s
+                ),
+            )
+        return fn(np.ascontiguousarray(padded, dtype=np.uint8), halo, h_out)
 
     return run
 
@@ -553,9 +667,20 @@ class BackendWorker:
         if engine == "torch":
             from akka_game_of_life_tpu_torch.runtime.simulation import (
                 resolve_device,
+                resolve_devices,
             )
 
-            device = resolve_device(device)
+            import torch
+
+            devices = resolve_devices(device)
+            # One device keeps the single-device engine exactly; several
+            # (an explicit list, or cuda with several cards) mesh each chunk.
+            device = (
+                devices if len(devices) > 1
+                else resolve_device(device)
+                if device is None or isinstance(device, (str, torch.device))
+                else devices[0]
+            )
         self.device = device
         # Retry policy (cluster config, overridden by WELCOME): base
         # interval, backoff cap, and the per-tile budget before escalation.

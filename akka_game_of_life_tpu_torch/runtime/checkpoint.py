@@ -11,8 +11,14 @@ checkpoints.  The cluster frontend streams per-tile epochs instead:
 ``COMPLETE.json`` marker that makes the epoch durable, the same layout as the
 JAX package's, so a cluster checkpoint directory written by either package
 resumes in the other's frontend.  Writes are atomic (tmp + fsync + rename);
-the newest ``keep`` epochs are kept.  Only npz exists here: ``make_store``
-refuses ``orbax`` by name.
+the newest ``keep`` epochs are kept.
+
+``make_store(dir, "orbax")`` gives the async per-shard store of
+``runtime/orbax_store.py`` (on ``torch.distributed.checkpoint``; the JAX
+package's is on Orbax).  The two formats are per package: a directory
+written by the JAX package's orbax store is refused by name, and a
+directory of either format refuses a store of the other, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -35,16 +41,65 @@ _TILE_DIR_RE = re.compile(r"^ckpt_(\d+)\.d$")
 _COMPLETE = "COMPLETE.json"
 
 
+# The markers of a step directory of the JAX package's orbax store (its
+# ``_existing_format``), and of an async save it left unfinished.
+_JAX_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "state", "meta")
+_JAX_ORBAX_TMP = ".orbax-checkpoint-tmp"
+JAX_ORBAX = "jax-orbax"
+
+
+def _existing_format(directory: str) -> Optional[str]:
+    """Which store already owns ``directory``: ``npz``, ``orbax`` (this
+    package's DCP store, finalised or mid-save), ``jax-orbax`` (the JAX
+    package's orbax store) or None."""
+    from akka_game_of_life_tpu_torch.runtime import orbax_store
+
+    d = Path(directory)
+    if not d.is_dir():
+        return None
+    for p in d.iterdir():
+        if _CKPT_RE.match(p.name) or (p.is_dir() and _TILE_DIR_RE.match(p.name)):
+            return "npz"
+        if orbax_store.is_step_dir(p) or orbax_store.is_tmp_dir(p):
+            return "orbax"
+        if p.is_dir() and _JAX_ORBAX_TMP in p.name:
+            return JAX_ORBAX
+        # A numeric directory alone is not enough (an unrelated output dir
+        # may hold some): it must carry the orbax markers.
+        if p.is_dir() and p.name.isdigit() and any(
+            (p / marker).exists() for marker in _JAX_ORBAX_MARKERS
+        ):
+            return JAX_ORBAX
+    return None
+
+
 def make_store(
     directory: str, fmt: str = "npz", keep: int = 3, registry=None, tracer=None
-) -> "CheckpointStore":
-    """The npz store of ``directory``; any other format raises by name."""
-    if fmt != "npz":
+):
+    """Checkpoint store factory: ``npz`` (host, packed, one writer) or
+    ``orbax`` (async, per shard, on DCP).
+
+    Refuses a directory already holding the other format's checkpoints, as
+    the JAX package does, and one written by the JAX package's orbax store,
+    which only that package reads."""
+    if fmt not in ("npz", "orbax"):
+        raise ValueError(f"unknown checkpoint format {fmt!r}; use npz or orbax")
+    existing = _existing_format(directory)
+    if existing == JAX_ORBAX:
         raise ValueError(
-            f"checkpoint format {fmt!r} is not supported by the PyTorch "
-            f"port; use npz"
+            f"checkpoint dir {directory} was written by the JAX package's "
+            f"orbax store; resume it there"
         )
-    return CheckpointStore(directory, keep=keep, registry=registry, tracer=tracer)
+    if existing is not None and existing != fmt:
+        raise ValueError(
+            f"checkpoint dir {directory} already holds {existing}-format "
+            f"checkpoints; refusing to start a {fmt}-format store there"
+        )
+    if fmt == "npz":
+        return CheckpointStore(directory, keep=keep, registry=registry, tracer=tracer)
+    from akka_game_of_life_tpu_torch.runtime.orbax_store import OrbaxCheckpointStore
+
+    return OrbaxCheckpointStore(directory, keep=keep, registry=registry, tracer=tracer)
 
 
 class _StoreMetrics:
@@ -381,6 +436,10 @@ class CheckpointStore:
             epoch=int(epoch), board=board.astype(np.uint8), rule=rule, meta=meta
         )
 
+    def wait(self) -> None:
+        """Saves are synchronous; nothing to wait for (the orbax store's
+        API)."""
+
     def close(self) -> None:
         """Saves are synchronous; nothing is held open."""
 
@@ -396,13 +455,18 @@ def describe_store(directory: str, validate: bool = False):
     bytes on disk (tile epochs add grid and tile counts), and the recorded
     digest.  With ``validate=True`` each epoch is also loaded in full and
     ``ok``/``error`` reported; a recorded digest is re-derived from the
-    payload on disk (``digest_ok``).  The JAX package's lines, for a
-    directory either package wrote; an orbax directory yields nothing (the
-    port's store is npz).
+    payload on disk (``digest_ok``).  The JAX package's lines, for an npz
+    directory either package wrote and for this package's orbax-format
+    store (``layout`` "device-native", as the JAX package names its own);
+    a directory of the JAX package's orbax store yields nothing.
     """
     from akka_game_of_life_tpu_torch.ops import digest as odigest
 
-    if not Path(directory).is_dir():
+    fmt = _existing_format(directory)
+    if fmt == "orbax":
+        yield from _describe_orbax(directory, validate)
+        return
+    if fmt != "npz":
         return
     store = CheckpointStore(directory)
     for epoch, path in store._epochs():
@@ -478,3 +542,53 @@ def describe_store(directory: str, validate: bool = False):
             except Exception as e:  # noqa: BLE001 — reported per epoch
                 info.update(ok=False, error=f"{type(e).__name__}: {e}")
         yield info
+
+
+def _describe_orbax(directory: str, validate: bool):
+    """describe_store's lines for this package's orbax-format store: epoch,
+    store, layout, rule, shape and bytes from each step's metadata, without
+    a restore; under ``validate`` each step is restored in full and its
+    recorded digest re-derived."""
+    from akka_game_of_life_tpu_torch.ops import digest as odigest
+    from akka_game_of_life_tpu_torch.runtime.orbax_store import OrbaxCheckpointStore
+
+    store = OrbaxCheckpointStore(directory)
+    try:
+        for epoch in store.epochs():
+            info = {"epoch": epoch, "store": "orbax", "layout": "device-native"}
+            try:
+                meta = store.step_meta(epoch)
+                info.update(
+                    rule=meta.get("rule"),
+                    shape=meta["shape"],
+                    bytes=store.step_bytes(epoch),
+                )
+                if meta.get("digest"):
+                    info["digest"] = meta["digest"]
+            except Exception as e:  # noqa: BLE001 — unreadable metadata is a finding
+                info.update(error=f"{type(e).__name__}: {e}")
+                if validate:
+                    info["ok"] = False
+                yield info
+                continue
+            if validate:
+                try:
+                    ck = store.load(epoch)
+                    info["ok"] = list(ck.board.shape) == info["shape"]
+                    recorded = info.get("digest")
+                    if recorded is not None and info["ok"]:
+                        computed = odigest.format_digest(
+                            odigest.value(odigest.digest_dense_np(ck.board))
+                        )
+                        info["digest_ok"] = computed == recorded
+                        if not info["digest_ok"]:
+                            info["ok"] = False
+                            info["error"] = (
+                                f"digest mismatch: stored {recorded}, "
+                                f"computed {computed}"
+                            )
+                except Exception as e:  # noqa: BLE001 — reported per epoch
+                    info.update(ok=False, error=f"{type(e).__name__}: {e}")
+            yield info
+    finally:
+        store.close()

@@ -5,21 +5,22 @@ fields the PyTorch port honours: the standalone run's knobs (the device
 mesh of one process, the kernels' tile, pacing, fault injection, deferred
 observation, the async checkpoint writer and the observability surface) and
 the cluster's (the ``frontend`` and ``backend`` roles, the in-process
-harness), with the JAX package's names, defaults and checks.  The standalone
+harness), with the JAX package's names, defaults and checks.  The run spans
+processes with ``distributed`` (``coordinator_address``, ``num_processes``,
+``process_id``, over ``torch.distributed``), and ``checkpoint_format =
+"orbax"`` selects the async per-shard store (``runtime/orbax_store.py``, on
+``torch.distributed.checkpoint``; the cluster frontend refuses it, as in
+the JAX package).  The standalone
 run also takes the linear-rule fast-forward (``ff_enabled``,
 ``ff_certify_steps``) and activity-gated stepping (``sparse_kernel``,
 ``sparse_block``, ``sparse_threshold``).  ``load_config`` reads the same
 TOML or JSON files (``examples/headline-65536.toml`` loads unchanged) and
 accepts the same duration spellings ("5s", "3000ms").  A key the port does
-not support — the multi-process mesh (``distributed``,
-``coordinator_address``, ``num_processes``, ``process_id``), a ``serve_*``
-or federation ``frontend_*`` knob, ``backend`` (the per-cell actor
-engines), or any other — raises a ``ValueError`` that names it, never a
-silent default.
-``checkpoint_format = "orbax"`` and a non-zero ``pallas_vmem_limit_mb`` are
-refused by name too: the port's store is npz, and the card has no Mosaic
-VMEM budget (the kernels keep their tiles in registers and small
-shared-memory rings).
+not support — a ``serve_*`` or federation ``frontend_*`` knob, ``backend``
+(the per-cell actor engines), or any other — raises a ``ValueError`` that
+names it, never a silent default.  A non-zero ``pallas_vmem_limit_mb`` is
+refused by name too: the card has no Mosaic VMEM budget (the kernels keep
+their tiles in registers and small shared-memory rings).
 
 One default differs from the JAX package on purpose: ``pallas_block_rows``
 is ``None``, "the kernel's own tile" (``ops/*_sweep.py:DEFAULT_TILE_ROWS``),
@@ -183,9 +184,17 @@ class SimulationConfig:
     # device when there are several (packed boards: (n, 1); dense: as
     # square as possible).
     mesh_shape: Optional[Tuple[int, int]] = None
+    # Multi-process: join a torch.distributed process group so the mesh
+    # spans every process's devices.  Set the three None fields, or the
+    # GOL_COORDINATOR / GOL_NUM_PROCESSES / GOL_PROCESS_ID variables (or
+    # torchrun's MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK).
+    distributed: bool = False
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 0  # epochs between checkpoints; 0 = disabled
-    checkpoint_format: str = "npz"
+    checkpoint_format: str = "npz"  # "npz" (host) | "orbax" (async, per shard)
     render_every: int = 0  # epochs between rendered frames; 0 = never
     render_max_cells: int = 128  # stride-sample larger boards down to this
     # Exact-cell window (y0, y1, x0, x1) printed at render cadence.
@@ -280,11 +289,8 @@ class SimulationConfig:
             raise ValueError(
                 f"unknown kernel {self.kernel!r}; choose from {KERNEL_CHOICES}"
             )
-        if self.checkpoint_format != "npz":
-            raise ValueError(
-                f"checkpoint_format={self.checkpoint_format!r} is not "
-                f"supported by the PyTorch port (its store is npz)"
-            )
+        if self.checkpoint_format not in ("npz", "orbax"):
+            raise ValueError(f"unknown checkpoint format {self.checkpoint_format!r}")
         if self.pallas_block_rows is not None and self.pallas_block_rows < 1:
             raise ValueError(
                 f"pallas_block_rows={self.pallas_block_rows} must be a "
@@ -434,6 +440,7 @@ CLUSTER_FIELDS = tuple(
         "height", "width", "rule", "density", "seed", "pattern",
         "pattern_offset", "max_epochs", "kernel", "pallas_block_rows",
         "pallas_vmem_limit_mb", "steps_per_call", "halo_width", "mesh_shape",
+        "distributed", "coordinator_address", "num_processes", "process_id",
         "checkpoint_dir", "checkpoint_every", "checkpoint_format",
         "checkpoint_async", "render_every", "render_max_cells",
         "probe_window", "log_file", "metrics_every", "obs_digest",

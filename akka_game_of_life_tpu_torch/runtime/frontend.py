@@ -414,6 +414,14 @@ class Frontend:
         # under self._lock.
         self.rebalancer = Rebalancer(config)
         self._drain_spans: Dict[str, object] = {}
+        if config.checkpoint_dir and config.checkpoint_format != "npz":
+            # The frontend streams per-tile saves (save_tile /
+            # finalize_epoch), which only the npz store implements; orbax is
+            # the standalone run's per-shard store.
+            raise ValueError(
+                "cluster frontend requires checkpoint_format='npz' "
+                f"(got {config.checkpoint_format!r})"
+            )
         self.store = (
             make_store(
                 config.checkpoint_dir,

@@ -5,7 +5,9 @@ standing in for "start N backends on localhost", used by the tests, by
 ``chip_smoke.py``'s cluster phase and by library users who want a local
 cluster without shell plumbing.  The workers share the process's device
 (``cuda`` unless ``device="cpu"``) and its default stream; each steps its
-tiles under its own lock.  Real multi-process clusters use the CLI roles
+tiles under its own lock.  A list of devices (``device=["cuda:0"] * 2``)
+reaches every worker whole, so each row-shards its chunks over them
+(``backend._meshed_engine``).  Real multi-process clusters use the CLI roles
 (``python -m akka_game_of_life_tpu_torch frontend/backend``).
 """
 

@@ -79,6 +79,24 @@ hold them, the digest folds per-tile lanes (``parallel/digest.py``), and a
 checkpoint gathers the layout to the host and saves what a single-device
 run saves, so any run resumes any other, meshed or not, in either package.
 
+**Several processes** (``distributed``, the JAX package's ``run
+--distributed``): the process group is joined before any device query and
+before the store is built (``parallel/distributed.py``), and the mesh's
+slots are every process's devices, rank-major; each process places, steps,
+observes and saves only its own tiles, and the halo strips that cross
+processes travel through ``parallel/halo.py:ring_shift``.  Every rank posts
+the same collectives in the same order: the digest lanes, the populations
+and the sampled cells are all-gathered at each cadence point, so every rank
+folds the same numbers, and rank 0 alone prints them, writes the metrics
+file, the trace file and the summary.  The npz checkpoint digests the board
+first (a collective), then rank 0 gathers the layout from the others and
+writes it while they wait at a ``ckpt-E`` barrier, synchronously (the
+writer thread is for one process); the ``orbax`` store saves each rank's
+tiles itself, with no gather.  Fault injection runs on the epoch-indexed
+schedule only, in lockstep: every rank crashes at the same epoch, restores
+from the shared store and replays; the wall-clock schedule and the
+fast-forward are refused, as in the JAX package.
+
 **The tile.** Under ``kernel=pallas`` the CUDA kernels run the
 ``pallas_block_rows`` variant of their tile (``tune``'s answer, one library
 per tile); ``kernel=auto`` and an unset ``pallas_block_rows`` run the
@@ -131,6 +149,7 @@ from akka_game_of_life_tpu_torch.ops import (
 )
 from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
 from akka_game_of_life_tpu_torch.parallel import digest as pdigest
+from akka_game_of_life_tpu_torch.parallel import distributed as pdist
 from akka_game_of_life_tpu_torch.parallel import halo, mesh as pmesh
 from akka_game_of_life_tpu_torch.parallel.packed_halo2d import (
     sharded_gen_step_fn,
@@ -143,7 +162,7 @@ from akka_game_of_life_tpu_torch.parallel.sweep_halo import (
 )
 from akka_game_of_life_tpu_torch.runtime import profiling
 from akka_game_of_life_tpu_torch.runtime.chaos import CrashInjector
-from akka_game_of_life_tpu_torch.runtime.checkpoint import CheckpointStore
+from akka_game_of_life_tpu_torch.runtime.checkpoint import make_store
 from akka_game_of_life_tpu_torch.runtime.config import (
     SimulationConfig,
     cluster_keys_set,
@@ -183,6 +202,16 @@ def resolve_devices(device=None) -> List[torch.device]:
     if not devices:
         raise ValueError("no devices given")
     return devices
+
+
+def _cuda_ordinals(device) -> Optional[List[int]]:
+    """The CUDA ordinals a ``device`` argument names, read from its spelling
+    alone (no device query): None for every visible card, [] for none."""
+    if device is None or str(device) == "cuda":
+        return None
+    names = [device] if isinstance(device, (str, torch.device)) else list(device)
+    devs = [torch.device(d) for d in names]
+    return sorted({d.index or 0 for d in devs if d.type == "cuda"})
 
 
 def _pattern(config: SimulationConfig) -> np.ndarray:
@@ -343,7 +372,31 @@ class Simulation:
                 f"(frontend/backend); the standalone run does not honour them"
             )
         self.config = config
+        if config.distributed:
+            # Before any device query and before the store is built: the
+            # ranks exchange their cards' UUIDs here to pick the transport.
+            pdist.initialize(
+                config.coordinator_address,
+                config.num_processes,
+                config.process_id,
+                local_device_ids=_cuda_ordinals(device),
+            )
+            if config.fault_injection.enabled and not config.fault_injection.epoch_indexed:
+                raise ValueError(
+                    "wall-clock fault_injection with distributed=True is "
+                    "unsupported: crash points are per-process wall-clock, so "
+                    "ranks would replay different epochs and desynchronize "
+                    "cross-host collectives.  Use the epoch-indexed schedule "
+                    "(fault_injection.first_after_epochs / every_epochs) — "
+                    "deterministic in simulation time, so every rank injects "
+                    "at the same epoch — or the cluster control plane's "
+                    "injector for per-worker chaos."
+                )
+        self.rank, self.world = pdist.process_info()
         self.devices = resolve_devices(device)
+        # The mesh's slots: every process's devices, rank-major (a
+        # collective when there are several processes).
+        self._slots, self._owners = pmesh.global_slots(self.devices)
         self.rule = resolve_rule(config.rule)
         self._sparse = None
         if config.sparse_kernel:
@@ -356,8 +409,10 @@ class Simulation:
             or config.kernel == "matmul"
             or self._sparse is not None
         )
-        self._use_mesh = config.mesh_shape is not None or (
-            len(self.devices) > 1 and not unsharded
+        self._use_mesh = (
+            config.mesh_shape is not None
+            or self.world > 1
+            or (len(self.devices) > 1 and not unsharded)
         )
         if self._sparse is not None:
             # The gated engine owns the layout (dense cells on the host).
@@ -384,13 +439,13 @@ class Simulation:
         self.mesh: Optional[pmesh.GridMesh] = None
         if self._use_mesh:
             if self.layout == "dense":
-                self.mesh = pmesh.make_grid_mesh(config.mesh_shape, self.devices)
+                self.mesh = self._make_mesh(config.mesh_shape)
                 pmesh.tile_shape(config.shape, self.mesh)
                 halo.validate_tile_shape(
                     self.mesh, config.shape, config.halo_width, self.rule.radius
                 )
             else:
-                self.mesh = pmesh.make_grid_mesh(self._packed_mesh_shape(), self.devices)
+                self.mesh = self._make_mesh(self._packed_mesh_shape())
                 if self.kernel == "bitpack":
                     self._validate_packed_mesh()
         # Observability, once the run is known to be valid: the process-wide
@@ -401,11 +456,14 @@ class Simulation:
         self._m_obs_seconds = self.metrics.histogram("gol_obs_seconds")
         self._m_digest_checks = self.metrics.counter("gol_digest_checks_total")
         self._m_digest_seconds = self.metrics.histogram("gol_digest_seconds")
-        self._node = f"{config.role}:0"
+        self._node = f"{config.role}:{self.rank}"
         if tracer is None:
             # Nodeless spans (checkpoint IO on the writer thread) carry
-            # this run's label.
-            self.tracer.node = self._node
+            # this run's label, and across processes the transport.
+            self.tracer.node = (
+                self._node if self.world == 1
+                else f"{self._node}/{pdist.transport()}"
+            )
         self.tracer.flight.configure(directory=config.flight_dir, node=self._node)
         self.events = EventLog(
             config.log_events, node=self._node, recorder=self.tracer.flight
@@ -423,9 +481,19 @@ class Simulation:
             log_file=config.log_file,
             registry=self.metrics,
         )
+        if self.world > 1 and self.rank == 0:
+            print(
+                f"distributed: {pdist.describe()}, mesh {self.mesh.shape} "
+                f"of {self.mesh.size} slots",
+                file=self.observer.out,
+                flush=True,
+            )
         self.store = (
-            CheckpointStore(
-                config.checkpoint_dir, registry=self.metrics, tracer=self.tracer
+            make_store(
+                config.checkpoint_dir,
+                config.checkpoint_format,
+                registry=self.metrics,
+                tracer=self.tracer,
             )
             if config.checkpoint_dir is not None
             else None
@@ -467,7 +535,7 @@ class Simulation:
                 f"sparse_kernel gates radius-1 rules; {self.rule} "
                 f"(radius {self.rule.radius}) runs dense"
             )
-        if config.mesh_shape is not None:
+        if config.mesh_shape is not None or config.distributed or self.world > 1:
             raise ValueError(
                 "sparse_kernel is a single-host engine (the gather/"
                 "scatter runs on the host board); unset mesh_shape/"
@@ -553,7 +621,7 @@ class Simulation:
         if self._use_mesh and not self._packed_mesh_divides():
             if kernel == "auto":
                 return "dense"
-            if cfg.mesh_shape is not None:
+            if cfg.mesh_shape is not None or self.world > 1:
                 raise ValueError(
                     f"kernel=pallas on a {self._packed_mesh_shape()} mesh: the "
                     f"packed grid ({cfg.height} rows x {cfg.width // 32} "
@@ -578,7 +646,13 @@ class Simulation:
             ltl_sweep.check_tile(self.tile_rows, self.rule.radius, cfg.height)
 
     def _packed_mesh_shape(self) -> Tuple[int, int]:
-        return self.config.mesh_shape or (len(self.devices), 1)
+        return self.config.mesh_shape or (len(self._slots), 1)
+
+    def _make_mesh(self, shape: Optional[Tuple[int, int]]) -> pmesh.GridMesh:
+        """The mesh over every process's slots; ``None`` factors their
+        count as square as possible."""
+        shape = shape or pmesh.factor_2d(len(self._slots))
+        return pmesh.GridMesh(shape, self._slots, self._owners)
 
     def _packed_mesh_divides(self) -> bool:
         cfg = self.config
@@ -660,7 +734,9 @@ class Simulation:
         if self._sparse is not None:
             return np.ascontiguousarray(payload, dtype=np.uint8)
         if self.mesh is not None:
-            return pmesh.shard_board(payload, self.mesh)
+            # Every rank holds the whole host payload; each places its own
+            # tiles.
+            return pdist.make_global_array(payload, self.mesh)
         if self.layout == "dense":
             return torch.from_numpy(np.ascontiguousarray(payload, np.uint8)).to(self.device)
         return bitpack.words_from_numpy(payload, self.device)
@@ -837,6 +913,13 @@ class Simulation:
                 "off); advance() iterates as usual"
             )
         fastforward.kernel_offsets(self.rule)  # the linearity refusal
+        if self.world > 1:
+            raise ValueError(
+                "fast_forward is single-host (a meshed jump gathers the "
+                "board through this host and re-shards; a cross-host "
+                "gather has no collective form yet) — run single-host or "
+                "iterate"
+            )
         t0 = time.perf_counter()
         with self.tracer.span(
             "sim.fastforward", node=self._node, epoch=self.epoch, epochs=epochs
@@ -894,8 +977,8 @@ class Simulation:
 
     def _dump_metrics(self) -> None:
         """Refresh the ``--metrics-file`` exposition (atomic, failure
-        contained), with the device-memory gauges."""
-        if self._metrics_dumper is None:
+        contained), with the device-memory gauges; rank 0 only."""
+        if self._metrics_dumper is None or self.rank != 0:
             return
         with contextlib.suppress(Exception):
             get_programs().refresh_device_gauges()
@@ -921,35 +1004,59 @@ class Simulation:
         return [self.board] if self.mesh is None else list(self.board)
 
     def _cells_request(
-        self, ys: np.ndarray, xs: np.ndarray, tiles: List[torch.Tensor]
-    ) -> List[List[torch.Tensor]]:
+        self, ys: np.ndarray, xs: np.ndarray, tiles: List[Optional[torch.Tensor]]
+    ) -> Dict[int, torch.Tensor]:
         """The cells at the global rows ``ys`` × cell columns ``xs`` (sorted
-        int arrays), cut on the device from the tiles that hold them, as
-        bands of per-tile parts: O(len(ys)·len(xs)) to fetch."""
+        int arrays), cut on the device from the local tiles that hold them,
+        keyed by slot: O(len(ys)·len(xs)) to fetch."""
         rows, cols = self.mesh.shape if self.mesh is not None else (1, 1)
         th, tw = self.config.height // rows, self.config.width // cols
-        bands = []
+        parts = {}
         for r in range(rows):
             ly = ys[(ys >= r * th) & (ys < (r + 1) * th)] - r * th
             if not len(ly):
                 continue
-            parts = []
             for c in range(cols):
                 lx = xs[(xs >= c * tw) & (xs < (c + 1) * tw)] - c * tw
-                if len(lx):
-                    parts.append(self._tile_cells(tiles[r * cols + c], ly, lx))
-            bands.append(parts)
-        return bands
+                tile = tiles[r * cols + c]
+                if len(lx) and tile is not None:
+                    parts[r * cols + c] = self._tile_cells(tile, ly, lx)
+        return parts
 
-    @staticmethod
-    def _join(bands) -> np.ndarray:
-        return np.concatenate([np.concatenate(p, axis=1) for p in bands], axis=0)
+    def _join(self, parts: Dict[int, np.ndarray]) -> np.ndarray:
+        """Per-slot cell parts (every slot's, after :meth:`_all_ranks`)
+        in their mesh places."""
+        cols = self.mesh.cols if self.mesh is not None else 1
+        bands: Dict[int, List[np.ndarray]] = {}
+        for i in sorted(parts):
+            bands.setdefault(i // cols, []).append(parts[i])
+        return np.concatenate(
+            [np.concatenate(bands[r], axis=1) for r in sorted(bands)], axis=0
+        )
+
+    def _all_ranks(self, got: dict) -> dict:
+        """An observation of this rank's tiles made whole: per-tile
+        populations, cell parts (by slot) and digest lanes of every rank,
+        in one all-gather of a few kilobytes; unchanged in one process."""
+        if self.world == 1:
+            return got
+        every = pdist.all_gather_object(got)
+        out = {}
+        for key, value in got.items():
+            if value is None:
+                out[key] = None
+            elif isinstance(value, dict):
+                out[key] = {i: v for g in every for i, v in g[key].items()}
+            else:
+                out[key] = [v for g in every for v in g[key]]
+        return out
 
     def _cells(self, ys: np.ndarray, xs: np.ndarray) -> np.ndarray:
         """Host uint8 cells at the global rows ``ys`` × columns ``xs``."""
         if self._sparse is not None:
             return self.board[np.ix_(ys, xs)]
-        return self._join(_HostFetch(self._cells_request(ys, xs, self._tiles())).result())
+        got = _HostFetch({"cells": self._cells_request(ys, xs, self._tiles())}).result()
+        return self._join(self._all_ranks(got)["cells"])
 
     def _tile_cells(self, tile: torch.Tensor, ly: np.ndarray, lx: np.ndarray) -> torch.Tensor:
         rows = torch.from_numpy(ly).to(tile.device)
@@ -962,13 +1069,15 @@ class Simulation:
             view = view | (bitpack.cells_at(tile[k], rows, lx) << k)
         return view
 
-    def _host_layout(self) -> np.ndarray:
+    def _host_layout(self, dst: Optional[int] = None) -> Optional[np.ndarray]:
         """The board in its layout on the host (packed words and planes as
-        uint32), gathered from the tiles on a mesh — O(board)."""
+        uint32), gathered from the tiles on a mesh — O(board).  Across
+        processes a collective: on every rank, or on rank ``dst`` only
+        (None elsewhere)."""
         if self._sparse is not None:
             return self.board.copy()
         if self.mesh is not None:
-            return pmesh.gather(self.board, self.mesh)
+            return pmesh.gather(self.board, self.mesh, dst=dst)
         if self.layout == "dense":
             return self.board.cpu().numpy()
         return bitpack.words_to_numpy(self.board)
@@ -978,6 +1087,8 @@ class Simulation:
         device scalar per tile."""
         out = []
         for tile in tiles:
+            if tile is None:
+                continue
             if self.layout == "dense":
                 out.append((tile == 1).sum(dtype=torch.int64))
             else:
@@ -986,8 +1097,9 @@ class Simulation:
         return out
 
     def _digest_parts(self, tiles: List[torch.Tensor]) -> List[torch.Tensor]:
-        """The board digest's (2,) lanes, one part per tile (their sum mod
-        2³² is the digest: ``digest.merge_lanes``)."""
+        """The board digest's (2,) lanes, one part per local tile (their sum
+        mod 2³² over every rank's tiles is the digest:
+        ``digest.merge_lanes``)."""
         cfg = self.config
         if self.mesh is not None:
             if self._digest is None:
@@ -1051,7 +1163,7 @@ class Simulation:
         rather than repeating it."""
         cfg = self.config
         dig_t0 = time.perf_counter()
-        got = rec["fetch"].result()
+        got = self._all_ranks(rec["fetch"].result())
         if on_fetched is not None:
             on_fetched()
         digest = None
@@ -1066,6 +1178,8 @@ class Simulation:
         win = self._join(got["win"]) if got["win"] is not None else None
         obs_seconds = time.perf_counter() - t0
         self._m_obs_seconds.observe(obs_seconds)
+        if self.rank != 0:
+            return
         self.observer.observe_summary(
             rec["epoch"],
             population,
@@ -1090,9 +1204,9 @@ class Simulation:
 
     def board_digest(self) -> int:
         """The 64-bit digest of the current board (~8 fetched bytes per
-        tile)."""
-        parts = _HostFetch(self._digest_parts(self._tiles())).result()
-        return odigest.value(odigest.merge_lanes(parts))
+        tile); a collective across processes."""
+        got = _HostFetch({"digest": self._digest_parts(self._tiles())}).result()
+        return odigest.value(odigest.merge_lanes(self._all_ranks(got)["digest"]))
 
     # -- failure and recovery --------------------------------------------------
 
@@ -1147,43 +1261,74 @@ class Simulation:
     # -- durability ------------------------------------------------------------
 
     def checkpoint(self) -> None:
-        """Save the board of the current epoch in its layout: on the writer
-        thread (``checkpoint_async``, at most one save in flight) or before
-        returning.  A mesh's tiles are gathered on the host first, so the
-        file is the same as a single-device run's."""
+        """Save the board of the current epoch in its layout.
+
+        npz: on the writer thread (``checkpoint_async``, at most one save in
+        flight, one process only) or before returning; a mesh's tiles are
+        gathered on the host first, so the file is the same as a
+        single-device run's.  Across processes rank 0 gathers and writes
+        while the others send their tiles and wait at the ``ckpt-E``
+        barrier.  orbax: the store's async save of this rank's tiles (the
+        dispatch is timed), every rank for itself."""
         if self.store is None:
             raise RuntimeError("no checkpoint_dir configured")
         cfg = self.config
         meta = {"height": cfg.height, "width": cfg.width}
         if cfg.obs_digest:
+            # A collective across processes: before the rank gate.
             meta["digest"] = odigest.format_digest(self.board_digest())
         rule = self.rule.rulestring()
         epoch = self.epoch
-        # Bind the snapshot now: the loop replaces self.board while an async
-        # save runs, and no stepper writes the tensor it was given.  The
-        # gated engine's host board is the one that is written in place:
-        # it is copied (as a mesh is gathered) before the writer sees it.
-        board = (
-            self._host_layout()
-            if self.mesh is not None or self._sparse is not None
-            else self.board
-        )
         layout = self.layout
-        self.events.emit("checkpoint_requested", epoch=epoch, format="npz")
+        npz = cfg.checkpoint_format == "npz"
+        if npz and self.world > 1:
+            # One host-side writer owns the file: rank 0 receives the other
+            # ranks' tiles.  No rank may run past the epoch before the file
+            # is durable: a lockstep crash right after it makes every rank
+            # load the store.
+            board = self._host_layout(dst=0)
+            if self.rank != 0:
+                pdist.barrier(f"ckpt-{epoch}")
+                return
+        elif npz or self._sparse is not None:
+            # Bind the snapshot now: the loop replaces self.board while an
+            # async save runs, and no stepper writes the tensor it was
+            # given.  The gated engine's host board is the one that is
+            # written in place: it is copied (as a mesh is gathered) before
+            # the writer sees it.
+            board = (
+                self._host_layout()
+                if self.mesh is not None or self._sparse is not None
+                else self.board
+            )
+        else:
+            board = self.board
+        self.events.emit(
+            "checkpoint_requested", epoch=epoch, format=cfg.checkpoint_format
+        )
 
-        def save() -> None:
-            if isinstance(board, np.ndarray):
-                host = board
-            elif layout == "dense":
-                host = board.cpu().numpy()
-            else:
-                host = bitpack.words_to_numpy(board)
-            if layout == "dense":
-                self.store.save(epoch, host, rule, meta=meta)
-            else:
-                self.store.save_packed32(epoch, host, cfg.shape, rule, meta=meta)
+        if npz:
 
-        if cfg.checkpoint_async:
+            def save() -> None:
+                if isinstance(board, np.ndarray):
+                    host = board
+                elif layout == "dense":
+                    host = board.cpu().numpy()
+                else:
+                    host = bitpack.words_to_numpy(board)
+                if layout == "dense":
+                    self.store.save(epoch, host, rule, meta=meta)
+                else:
+                    self.store.save_packed32(epoch, host, cfg.shape, rule, meta=meta)
+
+        else:
+            tagged = meta if layout == "dense" else {**meta, "layout": "packed32"}
+            mesh = self.mesh if isinstance(board, list) else None
+
+            def save() -> None:
+                self.store.save(epoch, board, rule, meta=tagged, mesh=mesh)
+
+        if npz and cfg.checkpoint_async and self.world == 1:
             self._ckpt_wait()
             if self._ckpt_executor is None:
                 self._ckpt_executor = concurrent.futures.ThreadPoolExecutor(
@@ -1196,7 +1341,7 @@ class Simulation:
                 return (time.perf_counter() - t0) * 1e3
 
             self._ckpt_pending = (self._ckpt_executor.submit(timed_save), epoch)
-        elif cfg.metrics_every:
+        elif cfg.metrics_every and self.rank == 0:
             with profiling.timed(
                 f"checkpoint@{epoch}",
                 out=self.observer.out,
@@ -1206,11 +1351,16 @@ class Simulation:
                 save()
         else:
             save()
+        if npz and self.world > 1:
+            # Rank 0's side of the durability barrier.
+            pdist.barrier(f"ckpt-{epoch}")
 
     def flush(self) -> None:
         """Block until the save in flight (if any) is on disk; raises the
         writer's error here."""
         self._ckpt_wait()
+        if self.store is not None:
+            self.store.wait()
 
     def _ckpt_wait(self) -> None:
         """Drain the in-flight save (no-op if none), raising its error on
@@ -1260,7 +1410,7 @@ class Simulation:
                 self.store.close()
             try:
                 self._dump_metrics()
-                if self.config.trace_file:
+                if self.config.trace_file and self.rank == 0:
                     try:
                         self.tracer.write(self.config.trace_file)
                     except OSError as e:

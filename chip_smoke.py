@@ -33,7 +33,18 @@ through its CLI:
   each binary chunk through the packed sweep, then the ``frontend`` and two
   ``backend`` processes with one backend killed after the epoch-30
   checkpoint; both end on the digests of the plain packed ``run`` on the
-  card.
+  card;
+- several processes: this script started twice more (``--dist-rank R
+  --dist-spec FILE``), two ranks of a ``torch.distributed`` group with two
+  slots of card 0 each, so their strips are staged through host memory
+  over gloo: the headline on (4, 1) (the single-card digests and windows,
+  48 packed-sweep launches a rank, rank 0's npz saves resumed by one
+  process, a lockstep crash at 180 replayed from the epoch-120 file),
+  WireWorld on (2, 2) through the plane sweep, the headline with the orbax
+  store (each rank saving its own tiles, resumed by one process, which
+  saves and resumes a step of its own), and the staged exchange's times;
+  then the 16384² cluster with each worker's chunks spread over
+  ``["cuda:0"] * 2`` (the meshed worker), against the plain packed run.
 
 - ``tune`` (the tile autotuner) through the CLI: Conway at 65536² on the
   JAX package's default grid, WireWorld and ``bugs`` at 16384², every point
@@ -226,6 +237,13 @@ MESH_MAIN_CASES = [
     ("words", (2, 2), FULL_SHAPE, 60),
     ("planes", (2, 2), GEN_WIRE_SHAPE, 10),
 ]
+# Two processes, one mesh: each rank drives two slots of card 0 (so their
+# strips are staged through host memory over gloo), four slots in all.
+DIST_RANKS = 2
+DIST_SLOTS = 2
+DIST_CRASH = {"enabled": True, "first_after_epochs": 150, "every_epochs": 1000,
+              "max_crashes": 1}
+DIST_WAIT_S = 420  # bound on the pair of processes of the distributed phases
 _DIGEST_LINE = re.compile(r"^epoch (\d+): digest=([0-9a-f]{16})$", re.M)
 
 _METRICS = re.compile(r"^epoch (\d+): pop=(\d+) .* digest=([0-9a-f]{16})$", re.M)
@@ -1593,11 +1611,13 @@ def mesh_parity(errors, rng, devices, card):
     )
 
 
-def mesh_timing(card, rng, devices):
+def mesh_timing(card, rng, devices, two_process):
     """On the headline's (4, 1) and (2, 2) tiles and WireWorld's (2, 2)
     tiles: one halo exchange, one sweep of one padded tile (against its
     bound and its plain version), and one 60-generation call of the
-    sharded stepper over all four tiles."""
+    sharded stepper over all four tiles; then the two-process (4, 1) call
+    and staged exchange (``two_process``, from the distributed pair)
+    beside the one-process numbers."""
     import numpy as np
     import torch
 
@@ -1660,6 +1680,16 @@ def mesh_timing(card, rng, devices):
         )
         if (label, shape) in (("headline", (4, 1)), ("wireworld", (2, 2))):
             out[name] = (ms, plain, bound)
+        if (label, shape) == ("headline", (4, 1)):
+            one = {"exchange_ms": exchange_ms, "call_ms": call_ms}
+    emit(
+        "timing", kernel="sharded_sweep", config="headline", mesh=[4, 1],
+        processes=DIST_RANKS, slots_per_process=DIST_SLOTS, transport="staged over gloo",
+        two_process={r["rank"]: {k: r[k] for k in ("exchange_ms", "call_ms")}
+                     for r in two_process},
+        cross_process_bytes_per_exchange=two_process[0]["cross_process_bytes"],
+        one_process=one, steps_per_call=60, card=card["name_power"],
+    )
     return out
 
 
@@ -1848,6 +1878,431 @@ def cluster_node_loss(toml: Path, want, tmp: Path, card):
         digests={e: digests[e] for e in CLUSTER_EPOCHS}, checkpoint_digest=stored,
         run_s=wall, card=card["name_power"],
     )
+
+
+# -- several processes ----------------------------------------------------------
+
+
+def _wall_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean host-clock ms of ``fn`` between card synchronisations (the staged
+    exchange waits on the host, so CUDA events alone would miss it)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _dist_run(job, rank: int, coordinator: str):
+    """One job of a rank: ``Simulation`` over this rank's slots of the
+    two-process mesh, with launch counts set to 0 just before and read just
+    after; returns its output, walls and counts."""
+    import torch
+
+    from akka_game_of_life_tpu_torch.runtime.config import load_config
+    from akka_game_of_life_tpu_torch.runtime.render import BoardObserver
+    from akka_game_of_life_tpu_torch.runtime.simulation import Simulation
+
+    from akka_game_of_life_tpu_torch.parallel import distributed
+
+    seed = job.get("seed_from")
+    if seed is not None and rank == 0:
+        shutil.copy(seed, job["overrides"]["checkpoint_dir"])
+    distributed.barrier(f"seed-{job['name']}")
+    config = load_config(job["config"], {
+        **job["overrides"], "obs_digest": True, "distributed": True,
+        "coordinator_address": coordinator, "num_processes": DIST_RANKS, "process_id": rank,
+    })
+    buf = io.StringIO()
+    observer = BoardObserver(
+        render_every=config.render_every, render_max_cells=config.render_max_cells,
+        metrics_every=config.metrics_every, out=buf,
+    )
+    zero_counts()
+    t0 = time.perf_counter()
+    sim = Simulation(config, observer=observer, device=[SINGLE] * DIST_SLOTS)
+    start = sim.epoch
+    with sim:
+        sim.advance(config.max_epochs - sim.epoch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        info = {"mesh": list(sim.mesh.shape), "local_slots": sim.mesh.local_slots,
+                "kernel": sim.kernel, "crash_log": sim.crash_log,
+                "tiles_on": sorted({str(t.device) for t in sim.board if t is not None})}
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    text = buf.getvalue()
+    (OUT / f"dist_{job['name']}_rank{rank}.log").write_text(text)
+    return {"text": text, "counts": counts, "start": start, "run_s": run_s,
+            "run_s_before_close": step_s, **info}
+
+
+def _dist_timing(job, rank: int):
+    """The headline's (4, 1) tiles over the two processes: one staged halo
+    exchange and one 60-generation call of the sharded sweep, host clock."""
+    import numpy as np
+    import torch
+
+    from akka_game_of_life_tpu_torch import parallel
+    from akka_game_of_life_tpu_torch.parallel.packed_halo2d import refresh_halos
+
+    mesh = parallel.make_grid_mesh((4, 1), [SINGLE] * DIST_SLOTS)
+    th, tw = FULL_SHAPE[0] // 4, FULL_SHAPE[1]
+    step = parallel.sharded_sweep_step_fn(mesh, "conway", steps_per_call=60)
+    plan = step.plan((th, tw))
+    p, hw = plan.halo_rows, plan.halo_words
+    rng = np.random.default_rng(rank)
+    padded = [
+        None if not mesh.is_local(i) else torch.from_numpy(
+            rng.integers(0, 2**32, size=(th + 2 * p, tw + 2 * hw), dtype=np.uint32)
+            .view(np.int32)).to(SINGLE)
+        for i in range(mesh.size)
+    ]
+    exchange_ms = _wall_ms(lambda: refresh_halos(padded, mesh, p, hw), reps=20, warmup=2)
+    tiles = [None if t is None else t[p : p + th].contiguous() for t in padded]
+    del padded
+    call_ms = _wall_ms(lambda: step(tiles), reps=5)
+    # Bytes that cross between the processes per exchange: each rank sends
+    # and receives two strips of p rows (the (4, 1) ring crosses twice).
+    crossed = 2 * DIST_RANKS * p * tw * 4
+    return {"exchange_ms": exchange_ms, "call_ms": call_ms, "halo_rows": p,
+            "cross_process_bytes": crossed, "tile_words": [th, tw]}
+
+
+def dist_worker(rank: int, spec_path: Path) -> int:
+    """A rank of the distributed phases (``chip_smoke.py --dist-rank R
+    --dist-spec FILE``, started by :func:`dist_phases`): join the group, run
+    each job of the spec, print one ``DIST {...}`` line per job."""
+    sys.path.insert(0, str(ROOT))
+    from akka_game_of_life_tpu_torch.parallel import distributed
+
+    spec = json.loads(spec_path.read_text())
+    distributed.initialize(spec["coordinator"], DIST_RANKS, rank, local_device_ids=[0])
+    for job in spec["jobs"]:
+        if job["kind"] == "timing":
+            result = _dist_timing(job, rank)
+        else:
+            result = _dist_run(job, rank, spec["coordinator"])
+        result.update(job=job["name"], rank=rank, transport=distributed.transport())
+        print("DIST " + json.dumps(result), flush=True)
+    distributed.barrier("done")
+    distributed.shutdown()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_pair(jobs, tmp: Path):
+    """Both ranks of the distributed phases, each a ``chip_smoke.py
+    --dist-rank`` process on card 0; returns {job: [rank 0's, rank 1's]}."""
+    spec = tmp / "dist-spec.json"
+    spec.write_text(json.dumps({"coordinator": f"127.0.0.1:{_free_port()}", "jobs": jobs}))
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "PYTHONFAULTHANDLER": "1"}
+    procs, logs = [], []
+    try:
+        for rank in range(DIST_RANKS):
+            log = OUT / f"dist_rank{rank}.log"
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--dist-rank", str(rank),
+                 "--dist-spec", str(spec)],
+                cwd=tmp, env=env, stdout=log.open("w"), stderr=subprocess.STDOUT,
+            ))
+        deadline = time.monotonic() + DIST_WAIT_S
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        stuck = [p for p in procs if p.poll() is None]
+        for p in stuck:
+            p.send_signal(signal.SIGABRT)  # thread stacks into the logs
+        for p in stuck:
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                p.wait(timeout=10)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for rank, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0,
+              f"distributed rank {rank} exited {proc.returncode}: {log.read_text()[-3000:]}")
+    out = {}
+    for log in logs:
+        for line in log.read_text().splitlines():
+            if line.startswith("DIST "):
+                got = json.loads(line[5:])
+                out.setdefault(got["job"], [None] * DIST_RANKS)[got["rank"]] = got
+    return out
+
+
+def dist_phases(headline, wireworld, tmp: Path, card):
+    """The two-process phases in one pair of processes: the headline on
+    (4, 1) with npz checkpoints, its epoch-120 checkpoint replayed through a
+    lockstep crash at 180, WireWorld on (2, 2), the headline with the orbax
+    store, and the staged exchange's times.  Returns the pair's results."""
+    from akka_game_of_life_tpu_torch.runtime.config import load_config
+
+    base = load_config(str(HEADLINE))
+    clean, crash, orbax = (tmp / f"dist-{n}" for n in ("npz", "crash", "orbax"))
+    crash.mkdir()
+    jobs = [
+        {"name": "headline", "kind": "run", "config": str(HEADLINE),
+         "overrides": {"mesh_shape": [4, 1], "checkpoint_dir": str(clean)}},
+        {"name": "crash", "kind": "run", "config": str(HEADLINE),
+         "seed_from": str(clean / f"ckpt_{base.checkpoint_every:012d}.npz"),
+         "overrides": {"mesh_shape": [4, 1], "checkpoint_dir": str(crash),
+                       "fault_injection": DIST_CRASH}},
+        {"name": "wireworld", "kind": "run", "config": str(WIREWORLD),
+         "overrides": {"mesh_shape": [2, 2], "checkpoint_dir": None}},
+        {"name": "orbax", "kind": "run", "config": str(HEADLINE),
+         "overrides": {"mesh_shape": [4, 1], "checkpoint_dir": str(orbax),
+                       "checkpoint_format": "orbax"}},
+        {"name": "timing", "kind": "timing"},
+    ]
+    t0 = time.perf_counter()
+    got = _run_pair(jobs, tmp)
+    emit("dist_pair", jobs=[j["name"] for j in jobs], wall_s=time.perf_counter() - t0,
+         card=card["name_power"])
+    check(sorted(got) == sorted(j["name"] for j in jobs), f"jobs reported: {sorted(got)}")
+    for name, ranks in got.items():
+        check(all(r is not None for r in ranks), f"{name}: a rank reported nothing")
+        check(all(r["transport"] == "staged" for r in ranks), f"{name}: transport "
+              f"{[r['transport'] for r in ranks]}, expected staged (two ranks on one card)")
+        if name != "timing":
+            check(ranks[1]["text"] == "", f"{name}: rank 1 printed lines")
+            check(all(r["tiles_on"] == [SINGLE] for r in ranks),
+                  f"{name}: tiles on {[r['tiles_on'] for r in ranks]}")
+    return got
+
+
+def dist_headline(got, headline, tmp: Path, card):
+    """The two-rank headline: the single-card run's digests and windows at
+    every cadence epoch, 48 packed-sweep launches per rank (96 in all),
+    rank 0's npz saves resumed by one process, and the lockstep crash at 180
+    replayed from the epoch-120 file on both ranks."""
+    from akka_game_of_life_tpu_torch.runtime.config import load_config
+
+    base = load_config(str(HEADLINE))
+    last, mid = base.max_epochs, base.checkpoint_every
+    epochs = cadence(base)
+    runs = got["headline"]
+    per_rank = mesh_sweeps(base, (4, 1), 0, last) // DIST_RANKS
+    for r in runs:
+        check(r["mesh"] == [4, 1] and r["kernel"] == "sweep", f"dist headline {r['mesh']}")
+        check(r["counts"] == {"packed_sweep": per_rank, "gen_sweep": 0, "ltl_sweep": 0},
+              f"dist headline rank {r['rank']}: launches {r['counts']}, expected {per_rank}")
+    metrics = _check_pattern_run("two-rank headline", runs[0]["text"], headline["expected"],
+                                 epochs)
+    check(metrics == headline["metrics"], "two-rank headline != the single-card run")
+    saves = _checkpoint_lines(runs[0]["text"])
+    check([n for n, _ in saves] == [f"checkpoint@{mid}", f"checkpoint@{last}"],
+          f"rank 0's saves {saves}")
+    # Rank 0's epoch-120 file in one process on the card.
+    resume = tmp / "dist-resume-single"
+    resume.mkdir()
+    shutil.copy(tmp / "dist-npz" / f"ckpt_{mid:012d}.npz", resume)
+    zero_counts()
+    text, resume_s = run_cli(
+        ["run", "--config", str(HEADLINE), "--obs-digest", "--checkpoint-dir", str(resume),
+         "--device", SINGLE], "dist_resume_single.log")
+    resumed, _ = parse_run(text)
+    check(resumed.get(last) == metrics[last], f"two-rank npz resumed in one process: "
+          f"{resumed.get(last)} != {metrics[last]}")
+    check(read_counts()["packed_sweep"] == planned_sweeps(base, mid, last),
+          "two-rank npz resumed in one process: launches")
+    # The lockstep crash: both ranks crash at 180, restore 120, replay 60.
+    crash = got["crash"]
+    replay = mesh_sweeps(base, (4, 1), mid, mid + 60) // DIST_RANKS
+    for r in crash:
+        check(r["start"] == mid and r["crash_log"] == [180],
+              f"crash rank {r['rank']}: start {r['start']}, crashes {r['crash_log']}")
+        check(r["counts"]["packed_sweep"] == mesh_sweeps(base, (4, 1), mid, last) // DIST_RANKS
+              + replay, f"crash rank {r['rank']}: launches {r['counts']}")
+    crashed, _ = parse_run(crash[0]["text"])
+    check(crashed == {e: metrics[e] for e in epochs if e > mid},
+          f"lockstep crash: {crashed} != the clean run's")
+    cells = base.height * base.width * last
+    emit(
+        "main_path", config=f"2 processes x Simulation({HEADLINE.name}, mesh_shape=(4, 1), "
+        f"device=[{SINGLE!r}] * {DIST_SLOTS}, distributed=True)",
+        kernel="sharded_sweep", transport=runs[0]["transport"],
+        launches_per_rank=[r["counts"] for r in runs], expected_launches=2 * per_rank,
+        digests={e: metrics[e][1] for e in epochs},
+        run_s=[r["run_s"] for r in runs], run_cell_updates_per_s=cells / runs[0]["run_s"],
+        npz_save_ms=dict(saves), single_card_run_s=headline["run_s"],
+        one_process_resume={"from": mid, "digest": resumed[last][1], "run_s": resume_s},
+        lockstep_crash={"at": 180, "restored_from": mid, "replayed": 60,
+                        "launches_per_rank": [r["counts"]["packed_sweep"] for r in crash],
+                        "run_s": [r["run_s"] for r in crash]},
+        card=card["name_power"],
+    )
+    return sum(r["counts"]["packed_sweep"] for r in runs)
+
+
+def dist_wireworld(got, wireworld, card):
+    """WireWorld on (2, 2) over two ranks through the plane sweep: the
+    single-card run's digests, windows and head count."""
+    from akka_game_of_life_tpu_torch.runtime.config import load_config
+
+    config = load_config(str(WIREWORLD))
+    runs = got["wireworld"]
+    per_rank = mesh_sweeps(config, (2, 2), 0, config.max_epochs) // DIST_RANKS
+    for r in runs:
+        check(r["mesh"] == [2, 2] and r["kernel"] == "gen_sweep", f"dist wireworld {r['mesh']}")
+        check(r["counts"] == {"packed_sweep": 0, "gen_sweep": per_rank, "ltl_sweep": 0},
+              f"dist wireworld rank {r['rank']}: launches {r['counts']}, expected {per_rank}")
+    epochs = cadence(config)
+    metrics = _check_pattern_run("two-rank wireworld", runs[0]["text"], wireworld["expected"],
+                                 epochs)
+    cells = config.height * config.width * config.max_epochs
+    emit(
+        "main_path", config=f"2 processes x Simulation({WIREWORLD.name}, mesh_shape=(2, 2))",
+        kernel="sharded_gen_sweep", transport=runs[0]["transport"],
+        launches_per_rank=[r["counts"] for r in runs],
+        digests={e: metrics[e][1] for e in epochs},
+        run_s=[r["run_s"] for r in runs], run_cell_updates_per_s=cells / runs[0]["run_s"],
+        single_card_run_s=wireworld["run_s"], card=card["name_power"],
+    )
+    return sum(r["counts"]["gen_sweep"] for r in runs)
+
+
+def dist_orbax(got, headline, tmp: Path, card):
+    """The two-rank headline with the orbax store (each rank saves its own
+    tiles; the dispatch is timed): the single-card digests; its epoch-120
+    step resumed by one process, which saves epoch 240 itself; both steps
+    validated (digest re-derived) and the single-process save resumed."""
+    from akka_game_of_life_tpu_torch.runtime.checkpoint import describe_store
+    from akka_game_of_life_tpu_torch.runtime.config import load_config
+    from akka_game_of_life_tpu_torch.runtime.orbax_store import OrbaxCheckpointStore
+    from akka_game_of_life_tpu_torch.runtime.render import BoardObserver
+    from akka_game_of_life_tpu_torch.runtime.simulation import Simulation
+
+    base = load_config(str(HEADLINE))
+    last, mid = base.max_epochs, base.checkpoint_every
+    runs = got["orbax"]
+    per_rank = mesh_sweeps(base, (4, 1), 0, last) // DIST_RANKS
+    for r in runs:
+        check(r["counts"]["packed_sweep"] == per_rank,
+              f"orbax rank {r['rank']}: launches {r['counts']}, expected {per_rank}")
+    metrics, _ = parse_run(runs[0]["text"])
+    check(metrics == headline["metrics"], "two-rank orbax headline != the single-card run")
+    store = OrbaxCheckpointStore(str(tmp / "dist-orbax"))
+    check(store.epochs() == [mid, last], f"orbax steps {store.epochs()}")
+    step = store.step_meta(mid)
+    check(step["mesh"] == [4, 1] and step["layout"] == "packed32", f"orbax step meta {step}")
+    shards = sorted(p.name for p in (tmp / "dist-orbax" / str(mid) / "state").glob("*.distcp"))
+    check(len(shards) == DIST_RANKS, f"orbax shards {shards}: one file per rank expected")
+    store.close()
+    dispatch = _checkpoint_lines(runs[0]["text"])
+    # One process resumes the two-rank step 120 and saves 240 itself.
+    resume = tmp / "orbax-resume-single"
+    shutil.copytree(tmp / "dist-orbax" / str(mid), resume / str(mid))
+    zero_counts()
+    text, resume_s = run_cli(
+        ["run", "--config", str(HEADLINE), "--obs-digest", "--checkpoint-dir", str(resume),
+         "--checkpoint-format", "orbax", "--device", SINGLE], "orbax_resume_single.log")
+    resumed, _ = parse_run(text)
+    check(resumed.get(last) == metrics[last],
+          f"two-rank orbax step resumed in one process: {resumed.get(last)} != {metrics[last]}")
+    check(read_counts()["packed_sweep"] == planned_sweeps(base, mid, last),
+          "orbax resume launches")
+    infos = list(describe_store(str(resume), validate=True))
+    check([i["epoch"] for i in infos] == [mid, last]
+          and all(i["ok"] and i.get("digest_ok") for i in infos),
+          f"orbax steps validated: {infos}")
+    check(infos[-1]["digest"] == metrics[last][1], "single-process orbax save: digest")
+    config = load_config(str(HEADLINE), {"checkpoint_dir": str(resume),
+                                         "checkpoint_format": "orbax", "max_epochs": last})
+    with Simulation(config, observer=BoardObserver(out=io.StringIO()), device=SINGLE) as sim:
+        check(sim.epoch == last, f"single-process orbax save resumed at {sim.epoch}")
+        check(f"{sim.board_digest():016x}" == metrics[last][1], "orbax 240 resumed: digest")
+    emit(
+        "dist_orbax", config=f"2 processes x Simulation({HEADLINE.name}, mesh_shape=(4, 1), "
+        "checkpoint_format='orbax')", launches_per_rank=[r["counts"] for r in runs],
+        digests={e: metrics[e][1] for e in sorted(metrics)},
+        dispatch_ms=dict(dispatch), run_s=[r["run_s"] for r in runs],
+        run_s_before_close=[r["run_s_before_close"] for r in runs],
+        npz_run_s=[r["run_s"] for r in got["headline"]], shards_per_step=len(shards),
+        one_process_resume={"from": mid, "digest": resumed[last][1], "run_s": resume_s,
+                            "saves": _checkpoint_lines(text)},
+        steps_validated=[{k: i[k] for k in ("epoch", "bytes", "digest_ok")} for i in infos],
+        card=card["name_power"],
+    )
+
+
+def worker_mesh(toml: Path, want, card, rng):
+    """The in-process cluster with each worker's chunks spread over
+    [cuda:0] x 2 (the meshed engine, through the sharded packed sweep): the
+    reference's digests and the planned launches; then the meshed chunk at
+    the cluster's slab against the single-device engine, timed."""
+    import numpy as np
+
+    from akka_game_of_life_tpu_torch.ops.packed_sweep import plan_sweeps
+    from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
+    from akka_game_of_life_tpu_torch.runtime.backend import _torch_engine
+    from akka_game_of_life_tpu_torch.runtime.config import load_config
+    from akka_game_of_life_tpu_torch.runtime.harness import ClusterHarness
+    from akka_game_of_life_tpu_torch.runtime.render import BoardObserver
+
+    devices = [SINGLE] * 2
+    config = load_config(str(toml))
+    out = io.StringIO()
+    chunks = config.max_epochs // config.exchange_width
+    expected = CLUSTER_WORKERS * chunks * len(devices) * len(plan_sweeps(config.exchange_width))
+    zero_counts()
+    h = ClusterHarness(config, CLUSTER_WORKERS, observer=BoardObserver(
+        metrics_every=config.metrics_every, out=out), engine="torch", device=devices)
+    try:
+        check(h.frontend.wait_for_backends(timeout=60), "meshed workers did not join")
+        t0 = time.perf_counter()
+        h.frontend.start_simulation()
+        check(h.frontend.done.wait(WAIT_S), "meshed-worker cluster did not finish")
+        wall = time.perf_counter() - t0
+        check(h.frontend.error is None, f"meshed-worker cluster: {h.frontend.error}")
+        digests = {e: f"{v:016x}" for e, v in h.frontend.epoch_digests.items()}
+    finally:
+        h.shutdown()
+    counts = read_counts()
+    (OUT / "worker_mesh.log").write_text(out.getvalue())
+    for e in CLUSTER_EPOCHS:
+        check(digests.get(e) == want[e], f"meshed workers epoch {e}: {digests.get(e)} != {want[e]}")
+    check(counts == {"packed_sweep": expected, "gen_sweep": 0, "ltl_sweep": 0},
+          f"meshed workers: launches {counts}, expected {expected}")
+    # One chunk at the cluster's slab (an 8192 x 16384 tile, 10-wide halo).
+    k, conway = config.exchange_width, resolve_rule("conway")
+    slab = (rng.random((16384 // CLUSTER_WORKERS + 2 * k, 16384 + 2 * k), dtype=np.float32)
+            < 0.5).astype(np.uint8)
+    meshed, single = _torch_engine(conway, device=devices), _torch_engine(conway, device=SINGLE)
+    got = meshed(slab, k, k)
+    check(np.array_equal(got, single(slab, k, k)), "meshed chunk != single-device chunk")
+    ms = {}
+    for name, engine in (("meshed", meshed), ("single", single)):
+        engine(slab, k, k)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            engine(slab, k, k)
+        ms[name] = (time.perf_counter() - t0) * 1e3 / 5
+    emit(
+        "main_path", config=f"ClusterHarness(2 torch workers, device={devices}), " + toml.name,
+        kernel="worker_chunk (meshed: sharded_sweep)", epochs=config.max_epochs,
+        launches=counts, expected_launches=expected,
+        digests={e: digests[e] for e in CLUSTER_EPOCHS}, run_s=wall,
+        chunk_slab=list(slab.shape), meshed_chunk_ms=ms["meshed"],
+        single_chunk_ms=ms["single"], card=card["name_power"],
+    )
+    return counts["packed_sweep"], ms["meshed"]
 
 
 def chunk_timing(card, rng):
@@ -2051,6 +2506,8 @@ def tune_timing(card, tune):
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--dist-rank"]:
+        return dist_worker(int(sys.argv[2]), Path(sys.argv[4]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2124,6 +2581,12 @@ def main() -> int:
         emit("cluster_reference", digests=want, run_s=ref_s, card=card["name_power"])
         launches["worker_chunk"] = phase("cluster_in_process", cluster_in_process, toml, want, tmp, card)
         phase("cluster_node_loss", cluster_node_loss, toml, want, tmp, card)
+        dist = phase("dist_pair", dist_phases, headline, wireworld, tmp, card)
+        launches["dist_sweep"] = phase("dist_headline", dist_headline, dist, headline, tmp, card)
+        launches["dist_gen_sweep"] = phase("dist_wireworld", dist_wireworld, dist, wireworld, card)
+        phase("dist_orbax", dist_orbax, dist, headline, tmp, card)
+        launches["worker_mesh"], meshed_chunk_ms = phase(
+            "worker_mesh", worker_mesh, toml, want, card, rng)
     torch.cuda.empty_cache()
 
     # -- 5. times on the card at the main paths' shapes ------------------------
@@ -2133,7 +2596,7 @@ def main() -> int:
     err, ms, plain_ms, bound, chunk_ms = phase("chunk_timing", chunk_timing, card, rng)
     errors.max["worker_chunk"] = err
     times["worker_chunk"] = (ms, plain_ms, bound)
-    times.update(phase("mesh_timing", mesh_timing, card, rng, devices))
+    times.update(phase("mesh_timing", mesh_timing, card, rng, devices, dist["timing"]))
     times["tune"], tune_best = phase("tune_timing", tune_timing, card, tune)
     launches["tune"] = sum(run["launches"] for run in tune.values())
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=phase_s,
@@ -2168,6 +2631,16 @@ def main() -> int:
         for name in (*KERNELS, *WIRINGS, "tune")
     ]
     entries[len(KERNELS)]["chunk_ms"] = chunk_ms
+    # This slice's paths through the same kernels: two processes on one card
+    # (staged over gloo) and the meshed cluster worker.
+    timing = dist["timing"][0]
+    entries[len(KERNELS)].update(launches_meshed_worker=launches["worker_mesh"],
+                                 meshed_chunk_ms=meshed_chunk_ms)
+    entries[len(KERNELS) + 1].update(
+        launches_two_processes=launches["dist_sweep"],
+        two_process_call_ms=timing["call_ms"], two_process_exchange_ms=timing["exchange_ms"],
+        two_process_transport="staged over gloo")
+    entries[len(KERNELS) + 2]["launches_two_processes"] = launches["dist_gen_sweep"]
     entries[-1]["best_point"] = tune_best
     print(json.dumps({"kernels": entries}), flush=True)
     print(card["name_power"], flush=True)

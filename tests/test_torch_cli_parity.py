@@ -21,10 +21,6 @@ REFUSED = {
     "run": {
         "--platform": "the JAX backend's platform; the port names its device with --device",
         "--backend": f"the actor engines: {_NOT_PORTED}",
-        "--distributed": f"multi-process runs: {_NOT_PORTED}",
-        "--coordinator": f"multi-process runs: {_NOT_PORTED}",
-        "--num-processes": f"multi-process runs: {_NOT_PORTED}",
-        "--process-id": f"multi-process runs: {_NOT_PORTED}",
         "--sparse-cluster": "a cluster key, which the standalone run refuses by name",
     },
 }
@@ -137,8 +133,42 @@ def test_new_flags_reach_the_config(role, overrides):
         assert (cfg.sparse_kernel, cfg.sparse_block, cfg.sparse_threshold) == (True, 64, 0.25)
         assert (cfg.ff_enabled, cfg.ff_certify_steps) == (False, 3)
     orbax = _subparser(tcli.main, role).parse_args(argv[:6] + ["--checkpoint-format", "orbax"])
-    with pytest.raises(ValueError, match="orbax"):
-        load_config(None, overrides(orbax))
+    assert load_config(None, overrides(orbax)).checkpoint_format == "orbax"
+    dist = ["--distributed", "--coordinator", "127.0.0.1:29512", "--num-processes", "2",
+            "--process-id", "1"]
+    cfg = load_config(None, overrides(_subparser(tcli.main, role).parse_args(argv + dist)))
+    if role == "run":
+        assert (cfg.distributed, cfg.coordinator_address, cfg.num_processes,
+                cfg.process_id) == (True, "127.0.0.1:29512", 2, 1)
+    else:
+        # As the JAX frontend: parsed, and no part of its config.
+        assert cfg == load_config(None, overrides(_subparser(tcli.main, role).parse_args(argv)))
+
+
+def test_orbax_format_reaches_the_store(tmp_path):
+    """``run --checkpoint-format orbax`` saves through the async per-shard
+    store; the frontend refuses it, with the JAX package's text."""
+    from akka_game_of_life_tpu_torch.runtime.orbax_store import OrbaxCheckpointStore
+    from akka_game_of_life_tpu_torch.runtime.simulation import Simulation
+
+    args = _subparser(tcli.main, "run").parse_args([
+        "--height", "32", "--width", "32", "--max-epochs", "4", "--steps-per-call", "2",
+        "--checkpoint-dir", str(tmp_path / "ck"), "--checkpoint-every", "2",
+        "--checkpoint-format", "orbax",
+    ])
+    cfg = load_config(None, tcli._run_overrides(args))
+    with Simulation(cfg, device="cpu") as sim:
+        assert isinstance(sim.store, OrbaxCheckpointStore)
+        sim.advance(4)
+    assert OrbaxCheckpointStore(str(tmp_path / "ck")).epochs() == [2, 4]
+    fe = _subparser(tcli.main, "frontend").parse_args([
+        "--checkpoint-dir", str(tmp_path / "fe"), "--checkpoint-format", "orbax",
+        "--max-epochs", "4",
+    ])
+    from akka_game_of_life_tpu_torch.runtime.frontend import Frontend
+
+    with pytest.raises(ValueError, match="cluster frontend requires checkpoint_format='npz'"):
+        Frontend(load_config(None, tcli._frontend_overrides(fe)))
 
 
 def test_the_frontend_ignores_the_run_only_flags():

@@ -627,3 +627,117 @@ def test_steppers_on_card_match_cpu(kw):
         boards.append(sim.board_host())
         digests.append(sim.board_digest())
     assert np.array_equal(*boards) and digests[0] == digests[1]
+
+
+# -- several processes, one mesh -----------------------------------------------
+
+
+def _dist_worker(port: int, rank: int, device: str) -> None:
+    """One rank of a two-process mesh on ``device``: two slots of it, a
+    (2, 2) global mesh; the sharded sweeps on random words and planes,
+    fetched whole, against the plain step of the whole torus on the card."""
+    from akka_game_of_life_tpu_torch.parallel import distributed, make_grid_mesh
+    from akka_game_of_life_tpu_torch.parallel.sweep_halo import (
+        sharded_gen_sweep_step_fn,
+        sharded_sweep_step_fn,
+    )
+
+    dev = torch.device(device)
+    ids = [dev.index or 0] if dev.type == "cuda" else []
+    distributed.initialize(f"127.0.0.1:{port}", 2, rank, local_device_ids=ids)
+    mesh = make_grid_mesh(None, [dev, dev])
+    assert mesh.shape == (2, 2) and mesh.local_slots == [2 * rank, 2 * rank + 1]
+    for lead, rule, fast, whole in (
+        ((), "conway", sharded_sweep_step_fn, bitpack.packed_multi_step),
+        ((2,), "wireworld", sharded_gen_sweep_step_fn, bitpack_gen.gen_multi_step),
+    ):
+        host = _words((*lead, 512, 16), 40 + len(lead))
+        before = (packed_sweep.packed_sweep.launches, gen_sweep.gen_sweep.launches)
+        tiles = fast(mesh, rule, steps_per_call=31)(distributed.make_global_array(host, mesh))
+        launched = (packed_sweep.packed_sweep.launches - before[0],
+                    gen_sweep.gen_sweep.launches - before[1])
+        assert all(t.device == dev for t in tiles if t is not None)
+        got = distributed.fetch(tiles, mesh)
+        want = whole(torch.from_numpy(host.view(np.int32)).to(dev), rule, 31)
+        assert np.array_equal(got, want.cpu().numpy().view(np.uint32)), rule
+        sweeps = 2 * len(packed_sweep.plan_sweeps(31))  # two tiles, one exchange
+        assert launched[len(lead) > 0] == sweeps and launched[len(lead) == 0] == 0, launched
+    print(f"DIST-OK rank={rank} transport={distributed.transport()}", flush=True)
+    distributed.shutdown()
+
+
+def _two_ranks(devices):
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = Path(__file__).resolve().parent.parent
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    procs = [
+        subprocess.Popen([sys.executable, __file__, str(port), str(r), devices[r]],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                         env=env, cwd=repo)
+        for r in (0, 1)
+    ]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{out[-4000:]}"
+    return outs
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_card_over_the_staged_transport():
+    """Two processes share card 0, so their strips are staged through
+    pinned host memory over gloo; each sweeps its own tiles on the card."""
+    _need_gpu()
+    outs = _two_ranks(["cuda:0", "cuda:0"])
+    for r, out in enumerate(outs):
+        assert f"DIST-OK rank={r} transport=staged" in out
+
+
+@pytest.mark.cuda
+def test_two_ranks_over_nccl():
+    """One process per card: the strips travel over NCCL."""
+    _need_gpu()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    outs = _two_ranks(["cuda:0", "cuda:1"])
+    for r, out in enumerate(outs):
+        assert f"DIST-OK rank={r} transport=nccl" in out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule,steps,states", [("conway", 10, 2), ("wireworld", 5, 4),
+                                               ("conway", 1, 2)])
+def test_meshed_worker_on_two_slots_matches_plain(rule, steps, states):
+    """The worker's chunk over ['cuda:0'] * 2 through the sharded sweeps,
+    against the plain sharded steppers and the single-device engine."""
+    _need_gpu()
+    from akka_game_of_life_tpu_torch.runtime import backend
+
+    r = resolve_rule(rule)
+    rng = np.random.default_rng(steps)
+    slab = rng.integers(0, states, size=(1000 + 2 * steps, 777 + 2 * steps), dtype=np.uint8)
+    before = packed_sweep.packed_sweep.launches + gen_sweep.gen_sweep.launches
+    got = backend._torch_engine(r, device=["cuda:0", "cuda:0"])(slab, steps, steps)
+    launched = packed_sweep.packed_sweep.launches + gen_sweep.gen_sweep.launches - before
+    plain = backend._meshed_engine(r, ["cuda:0", "cuda:0"], use_sweep=False)(slab, steps, steps)
+    single = backend._torch_engine(r, device="cuda:0")(slab, steps, steps)
+    assert np.array_equal(got, plain) and np.array_equal(got, single)
+    assert launched == (0 if steps == 1 else 2 * len(packed_sweep.plan_sweeps(steps)))
+
+
+if __name__ == "__main__":
+    import sys
+
+    _dist_worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

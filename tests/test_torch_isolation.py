@@ -1,4 +1,4 @@
-"""The PyTorch port stands alone: it never imports JAX or the JAX package.
+"""The PyTorch port stands alone: it never imports JAX, Orbax or the JAX package.
 
 The machine with the GPU has no JAX, so neither the port nor its scripts
 (``chip_smoke.py``, ``node_loss_drill.py``) may import ``jax`` or
@@ -17,7 +17,7 @@ PORT = REPO / "akka_game_of_life_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "node_loss_drill.py",
 ]
-FORBIDDEN = ("jax", "jaxlib", "akka_game_of_life_tpu")
+FORBIDDEN = ("jax", "jaxlib", "orbax", "akka_game_of_life_tpu")
 
 
 def _imported_modules(path):
@@ -46,14 +46,16 @@ def test_sources_exist():
 def test_parallel_modules_are_covered():
     parallel = PORT / "parallel"
     names = {p.stem for p in parallel.glob("*.py")}
-    assert {"mesh", "halo", "packed_halo", "packed_halo2d", "sweep_halo", "digest"} <= names
+    assert {"mesh", "halo", "packed_halo", "packed_halo2d", "sweep_halo", "digest",
+            "distributed"} <= names
     assert all(parallel / f"{name}.py" in SOURCES for name in names)
 
 
 def test_runtime_modules_are_covered():
     runtime = PORT / "runtime"
     names = {p.stem for p in runtime.glob("*.py")}
-    assert {"autotune", "selftest", "profiling", "simulation", "checkpoint"} <= names
+    assert {"autotune", "selftest", "profiling", "simulation", "checkpoint",
+            "orbax_store"} <= names
     assert all(runtime / f"{name}.py" in SOURCES for name in names)
 
 

@@ -291,9 +291,23 @@ def test_mesh_keys_load_from_toml_as_jax_loads_them(tmp_path):
     [("distributed", True), ("coordinator_address", "localhost:1"),
      ("num_processes", 2), ("process_id", 0), ("pallas_vmem_limit_mb", 16)],
 )
-def test_multi_process_and_block_keys_refused_by_name(key, value):
-    with pytest.raises(ValueError, match=key):
-        load_config(None, {key: value})
+def test_multi_process_and_block_keys_refused_by_name(key, value, monkeypatch):
+    if key == "pallas_vmem_limit_mb":
+        with pytest.raises(ValueError, match=key):
+            load_config(None, {key: value})
+        return
+    # The multi-process keys are honoured: each reaches the config, and a
+    # distributed run missing it is refused naming it, before any connection.
+    assert getattr(load_config(None, {key: value}), key) == value
+    for name in ("GOL_COORDINATOR", "GOL_NUM_PROCESSES", "GOL_PROCESS_ID",
+                 "MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    full = {"distributed": True, "coordinator_address": "localhost:1",
+            "num_processes": 2, "process_id": 0}
+    missing = "coordinator_address" if key == "distributed" else key
+    cfg = load_config(None, {k: v for k, v in full.items() if k != missing})
+    with pytest.raises(ValueError, match=missing):
+        tsim.Simulation(cfg, device="cpu")
 
 
 def test_cli_mesh_needs_as_many_devices(capsys):
