@@ -1,10 +1,10 @@
 """Command line of the PyTorch port: ``run``, ``frontend``, ``backend``,
-``tune``, ``selftest``, ``checkpoints`` and ``models``.
+``serve``, ``tune``, ``selftest``, ``checkpoints`` and ``models``.
 
 Counterpart of ``akka_game_of_life_tpu/cli.py``'s subcommands of the same
-names, with the flags the port honours.  ``run``, ``backend``, ``tune`` and
-``selftest`` take ``--device`` (default ``cuda``; they raise when CUDA is
-absent rather than moving to the CPU); ``run --device cuda`` uses every
+names, with the flags the port honours.  ``run``, ``backend``, ``serve``,
+``tune`` and ``selftest`` take ``--device`` (default ``cuda``; they raise
+when CUDA is absent rather than moving to the CPU); ``run --device cuda`` uses every
 visible card, sharding the board over them, and ``--mesh ROWSxCOLS`` asks
 for a mesh of exactly that many devices.  ``run --distributed --coordinator
 HOST:PORT --num-processes N --process-id R`` joins N processes into one
@@ -17,6 +17,13 @@ mesh over every process's devices (rank 0 prints the run's lines):
     python -m akka_game_of_life_tpu_torch frontend --port 2601 --min-backends 2 \\
         --height 4096 --width 4096 --max-epochs 120 --exchange-width 10
     python -m akka_game_of_life_tpu_torch backend --port 2601 --name alpha
+    python -m akka_game_of_life_tpu_torch serve --metrics-port 8080
+    python -m akka_game_of_life_tpu_torch run --backend actor-native --height 256 --width 256
+
+``run --backend actor|actor-native`` steps the per-cell actor engines on
+the host (they build no device state); ``backend --engine swar|actor|
+actor-native`` picks a worker's host engine.  ``serve`` is the
+single-process serving plane (``serve/``); SIGTERM drains it and exits 130.
 """
 
 from __future__ import annotations
@@ -170,6 +177,12 @@ def _add_stepping(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument("--steps-per-call", type=int)
     p.add_argument(
+        "--backend", choices=["tpu", "actor", "actor-native"],
+        help="tpu (the JAX package's name for the stencil kernels; the "
+        "default) or the per-cell actor engines on the host: actor "
+        "(Python) or actor-native (C++, built with g++)",
+    )
+    p.add_argument(
         "--kernel",
         choices=list(KERNEL_CHOICES),
         help="auto/pallas: the CUDA kernels on cuda (packed sweep for binary "
@@ -202,16 +215,22 @@ def _add_stepping(p: argparse.ArgumentParser) -> None:
         "steps the whole board and only the change bitmap is recomputed "
         "(default 0.5)",
     )
+    _add_ff(p)
+
+
+def _add_ff(p: argparse.ArgumentParser) -> None:
+    """The linear-rule fast-forward knobs (run and serve; the frontend
+    parses and ignores them, as the JAX frontend does)."""
     g = p.add_argument_group(
         "logarithmic fast-forward",
         "jump T epochs of an XOR-linear (odd-rule) board in O(log T) roll "
-        "passes instead of O(T) steps (run only; the frontend parses and "
-        "ignores them); non-linear rules are refused",
+        "passes instead of O(T) steps; non-linear rules are refused",
     )
     g.add_argument(
         "--ff-enabled", choices=["on", "off"], default=None,
         help="master switch (default on): off makes Simulation.fast_forward "
-        "refuse",
+        "refuse and the serve plane answer 429 `max_steps` past the "
+        "serve_max_steps bound even for linear rules",
     )
     g.add_argument(
         "--ff-certify-steps", type=int, default=None, metavar="T",
@@ -219,6 +238,238 @@ def _add_stepping(p: argparse.ArgumentParser) -> None:
         "min(T, jump span) epochs also run through the dense stepper and "
         "the digests must agree; 0 skips",
     )
+
+
+def _ff_overrides(args: argparse.Namespace) -> dict:
+    return {
+        "ff_enabled": _ON_OFF[args.ff_enabled],
+        "ff_certify_steps": args.ff_certify_steps,
+    }
+
+
+def _add_serve(p: argparse.ArgumentParser) -> None:
+    """The serving plane's knobs (``serve/``), the JAX package's.  Every
+    ``--serve-X`` flag maps 1:1 onto ``SimulationConfig.serve_X`` (dashes
+    to underscores); ``--serve-cluster on`` is refused by the config (the
+    serving cluster is a later slice of the port) and the cluster-only
+    knobs parse and stay inert, as in the JAX package."""
+    g = p.add_argument_group(
+        "serving plane",
+        "admission control and batched-engine knobs for the multi-tenant "
+        "/boards API (see docs/OPERATIONS.md \"Serving plane\")",
+    )
+    g.add_argument(
+        "--serve-max-sessions", type=int, default=None, metavar="N",
+        help="session-count cap; creates beyond it answer 429",
+    )
+    g.add_argument(
+        "--serve-max-cells", type=int, default=None, metavar="N",
+        help="aggregate live-cell budget across all sessions; creates "
+        "that would exceed it answer 429",
+    )
+    g.add_argument(
+        "--serve-queue-depth", type=int, default=None, metavar="N",
+        help="pending step-job bound; a full queue answers 429 to NEW "
+        "jobs (queued ones always complete)",
+    )
+    g.add_argument(
+        "--serve-max-steps", type=int, default=None, metavar="N",
+        help="most generations one step request may ask for",
+    )
+    g.add_argument(
+        "--serve-tick-s", default=None, metavar="DUR",
+        help="engine pacing floor: at most one batched device program "
+        "per this interval (e.g. 10ms; 0 = free-running)",
+    )
+    g.add_argument(
+        "--serve-ttl-s", default=None, metavar="DUR",
+        help="idle-session TTL; untouched sessions are evicted after "
+        "this long (e.g. 5m; 0 = never)",
+    )
+    g.add_argument(
+        "--serve-size-classes", default=None, metavar="C1,C2,...",
+        help="padded board size classes (square sides, ascending): mixed "
+        "shapes bucket into a few compiled programs; bigger boards run "
+        "as tiled sessions in cluster mode, and are refused single-"
+        "process (default 32,64,128,256)",
+    )
+    g.add_argument(
+        "--serve-cluster",
+        choices=["on", "off"],
+        default=None,
+        help="cluster-sharded serving: this process becomes the tenant-"
+        "facing cluster frontend, sessions hash-shard across joined "
+        "backend workers (each running its own batched engine), "
+        "session shards migrate under load/drain, and over-class boards "
+        "are admitted as tiled sessions (default off)",
+    )
+    g.add_argument(
+        "--serve-shards", type=int, default=None, metavar="N",
+        help="virtual session shards — the unit of placement and "
+        "migration across workers (default 64)",
+    )
+    g.add_argument(
+        "--serve-tile-chunk", type=int, default=None, metavar="K",
+        help="epochs per fan-out round of a tiled (mega-board) session "
+        "step; each tile ships a K-wide halo per round trip (default 8)",
+    )
+    g.add_argument(
+        "--serve-tiled-resident",
+        choices=["on", "off"],
+        default=None,
+        help="worker-resident tiled sessions: mega-board chunks install "
+        "once on their workers and stay resident across steps, "
+        "exchanging O(perimeter) halo strips worker-to-worker per round "
+        "instead of shipping O(area) state through the frontend "
+        "(default on; off = the ship-per-round baseline)",
+    )
+    g.add_argument(
+        "--serve-tiled-resident-snapshot", type=int, default=None,
+        metavar="N",
+        help="resident-chunk snapshot cadence in rounds: every Nth "
+        "barrier each chunk retains a local snapshot and streams it to "
+        "its replica — the certified resume point after a worker loss "
+        "(default 4)",
+    )
+    g.add_argument(
+        "--serve-tiled-resident-halo-timeout-s", default=None,
+        metavar="DUR",
+        help="peer halo strips unacked past this bound retransmit "
+        "(default 1s)",
+    )
+    g.add_argument(
+        "--serve-replicate",
+        choices=["on", "off"],
+        default=None,
+        help="session replication & crash failover: every session shard "
+        "gets a replica worker the primary streams state to; on worker "
+        "loss the frontend promotes the replica (sessions resume from "
+        "their last acked replicated epoch, digest-certified) instead of "
+        "404ing (default on; degrades to single-copy when no second "
+        "placeable worker exists)",
+    )
+    g.add_argument(
+        "--serve-replicate-every", type=int, default=None, metavar="N",
+        help="replication epoch cadence: a session re-streams to its "
+        "replica after advancing N epochs past the acked watermark "
+        "(idle dirty sessions flush regardless; default 8)",
+    )
+    g.add_argument(
+        "--serve-replicate-interval-s", default=None, metavar="DUR",
+        help="the primary's replication stream-pass interval (e.g. "
+        "250ms; default 0.25s)",
+    )
+    g.add_argument(
+        "--serve-replicate-max-lag-s", default=None, metavar="DUR",
+        help="replication lag bound: lag past this is surfaced loudly "
+        "(event + /healthz lag_alert_shards; default 30s)",
+    )
+    g.add_argument(
+        "--serve-trace",
+        choices=["on", "off"],
+        default=None,
+        help="per-request serve-plane tracing: mint/adopt a trace id per "
+        "HTTP request and propagate it through every serve frame it "
+        "causes, so /trace shows serve.request → worker serve.batch "
+        "(default on)",
+    )
+    g.add_argument(
+        "--serve-slo-log", default=None, metavar="PATH",
+        help="structured JSONL access log: one line per request with "
+        "trace id, tenant, route, sid, outcome, queue-wait, latency "
+        "(default off; /slo and RED metrics run regardless)",
+    )
+    g.add_argument(
+        "--serve-slo-availability", type=float, default=None, metavar="F",
+        help="availability objective the burn-rate tracker scores "
+        "against, in (0, 1) (default 0.999)",
+    )
+    g.add_argument(
+        "--serve-slo-latency-ms", type=float, default=None, metavar="MS",
+        help="latency objective: requests slower than this are SLO-bad "
+        "for the latency objective (default 250)",
+    )
+    g.add_argument(
+        "--serve-slo-fast-window-s", default=None, metavar="DUR",
+        help="fast burn-rate window (default 5m)",
+    )
+    g.add_argument(
+        "--serve-slo-slow-window-s", default=None, metavar="DUR",
+        help="slow burn-rate window; the alert fires only when BOTH "
+        "windows burn (default 1h)",
+    )
+    g.add_argument(
+        "--serve-slo-max-tenants", type=int, default=None, metavar="N",
+        help="per-tenant label-cardinality cap: beyond it the least-"
+        "recently-seen tenant's series are reclaimed and fold into "
+        "tenant=\"~overflow\" (default 64)",
+    )
+    g.add_argument(
+        "--serve-canary",
+        choices=["on", "off"],
+        default=None,
+        help="digest-certified canary prober: a background synthetic "
+        "tenant pins one known-orbit session per worker and steps it at "
+        "cadence through the real HTTP surface, certifying every answer "
+        "against a precomputed oracle (default off)",
+    )
+    g.add_argument(
+        "--serve-canary-interval-s", default=None, metavar="DUR",
+        help="canary probe cadence (default 2s)",
+    )
+    g.add_argument(
+        "--serve-canary-side", type=int, default=None, metavar="N",
+        help="canary board side, square (default 32)",
+    )
+    g.add_argument(
+        "--serve-memo",
+        choices=["on", "off"],
+        default=None,
+        help="cross-tenant memoized macro-stepping: content-addressed "
+        "(rule, block) → center-after-steps cache shared across every "
+        "session, with sampled digest certification against direct "
+        "iteration (default off)",
+    )
+    g.add_argument(
+        "--serve-memo-block", type=int, default=None, metavar="B",
+        help="macro-cell context block side (power of two >= 16); each "
+        "macro-round advances B/4 epochs (default 64)",
+    )
+    g.add_argument(
+        "--serve-memo-max-mb", type=int, default=None, metavar="MB",
+        help="memo cache byte budget, LRU beyond it (default 256)",
+    )
+    g.add_argument(
+        "--serve-memo-hit-floor", type=float, default=None, metavar="F",
+        help="post-warmup per-round tile hit-rate floor below which a "
+        "session's round aborts to the dense path (default 0.25)",
+    )
+    g.add_argument(
+        "--serve-memo-warmup", type=int, default=None, metavar="N",
+        help="ungated probe macro-rounds per session before the hit "
+        "floor applies (default 16)",
+    )
+    g.add_argument(
+        "--serve-memo-disable-after", type=int, default=None, metavar="N",
+        help="consecutive below-floor rounds that disable memoization "
+        "for the session (default 3)",
+    )
+    g.add_argument(
+        "--serve-memo-certify-every", type=int, default=None, metavar="N",
+        help="certify every Nth macro-round per session against the "
+        "dense kernel by digest (0 = never; default 64)",
+    )
+
+
+def _serve_overrides(args: argparse.Namespace) -> dict:
+    """``--serve-X`` flags → ``serve_X`` override kwargs: the on/off
+    switches as booleans, everything else as given (``load_config`` parses
+    the durations and drops the unset ones)."""
+    out = {k: v for k, v in vars(args).items() if k.startswith("serve_")}
+    for switch in ("serve_cluster", "serve_tiled_resident", "serve_replicate",
+                   "serve_trace", "serve_canary", "serve_memo"):
+        out[switch] = _ON_OFF[out[switch]]
+    return out
 
 
 def _add_obs_programs(p: argparse.ArgumentParser) -> None:
@@ -460,10 +711,13 @@ def _backend_parser(sub) -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument(
         "--engine",
-        choices=["torch", "numpy"],
+        choices=["torch", "numpy", "swar", "actor", "actor-native"],
         default="torch",
         help="tile chunk engine: torch = on --device (binary chunks through "
-        "the CUDA packed sweep on cuda), numpy = host stepping",
+        "the CUDA packed sweep on cuda), numpy = host stepping, swar = C++ "
+        "64-cells-per-word SWAR chunks (host machine code), actor = per-cell "
+        "actor engine (the reference's architecture), actor-native = the "
+        "same engine in C++ (built with g++)",
     )
     p.add_argument(
         "--pallas",
@@ -504,6 +758,7 @@ def _run_overrides(args: argparse.Namespace) -> dict:
     out = {
         **_board_overrides(args),
         "steps_per_call": args.steps_per_call,
+        "backend": args.backend,
         "kernel": args.kernel,
         "pallas_block_rows": args.pallas_block_rows,
         "pallas_vmem_limit_mb": args.pallas_vmem_limit_mb,
@@ -519,8 +774,7 @@ def _run_overrides(args: argparse.Namespace) -> dict:
         "sparse_kernel": _ON_OFF[args.sparse_kernel],
         "sparse_block": args.sparse_block,
         "sparse_threshold": args.sparse_threshold,
-        "ff_enabled": _ON_OFF[args.ff_enabled],
-        "ff_certify_steps": args.ff_certify_steps,
+        **_ff_overrides(args),
         "distributed": args.distributed,
         "coordinator_address": args.coordinator,
         "num_processes": args.num_processes,
@@ -849,6 +1103,57 @@ def _frontend(args: argparse.Namespace) -> int:
             return 130  # startup window; run_frontend handles the rest
 
 
+def _serve_parser(sub) -> None:
+    p = sub.add_parser(
+        "serve",
+        help="multi-tenant board service: batched boards behind a /boards "
+        "HTTP API with admission control (mounted on the obs endpoint "
+        "alongside /metrics, /healthz, /trace)",
+    )
+    p.add_argument("--config", help="TOML or JSON config file")
+    p.add_argument(
+        "--device", type=_run_device, default="cuda",
+        help="where the batched boards step: cuda (default), cuda:N or cpu",
+    )
+    p.add_argument(
+        "--metrics-port", type=int, default=None,
+        help="HTTP port for /boards + /metrics + /healthz + /trace "
+        "(default 0 = ephemeral, printed at startup)",
+    )
+    # The serving cluster's listener (inert while --serve-cluster is off,
+    # which is the only mode the port runs).
+    p.add_argument("--port", type=int, default=2551)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--min-backends", type=int, default=1)
+    _add_serve(p)
+    _add_ff(p)
+    _add_obs_programs(p)
+
+
+def _serve(args: argparse.Namespace) -> int:
+    cfg = load_config(
+        args.config,
+        {
+            "role": "serve",
+            "metrics_port": args.metrics_port,
+            "host": args.host,
+            "port": args.port,
+            **_serve_overrides(args),
+            **_ff_overrides(args),
+            **_obs_programs_overrides(args),
+        },
+    )
+    from akka_game_of_life_tpu_torch.obs import get_tracer
+    from akka_game_of_life_tpu_torch.runtime.signals import flight_dump_on_signals
+    from akka_game_of_life_tpu_torch.serve.api import run_serve
+
+    with _sigterm_as_interrupt(), flight_dump_on_signals(get_tracer().flight):
+        try:
+            return run_serve(cfg, device=args.device)
+        except KeyboardInterrupt:
+            return 130  # the bind/startup window; run_serve handles the rest
+
+
 def _backend(args: argparse.Namespace) -> int:
     from akka_game_of_life_tpu_torch.obs import get_tracer
     from akka_game_of_life_tpu_torch.runtime.backend import run_backend
@@ -889,6 +1194,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     _run_parser(sub)
     _frontend_parser(sub)
     _backend_parser(sub)
+    _serve_parser(sub)
     _tune_parser(sub)
     _selftest_parser(sub)
     _checkpoints_parser(sub)
@@ -902,6 +1208,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "run": _run,
         "frontend": _frontend,
         "backend": _backend,
+        "serve": _serve,
         "tune": _tune,
         "selftest": _selftest,
         "checkpoints": _checkpoints,

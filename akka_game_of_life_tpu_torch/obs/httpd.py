@@ -76,6 +76,15 @@ def strip_query(path: str) -> str:
     return path.split("?", 1)[0]
 
 
+class _Server(ThreadingHTTPServer):
+    """The endpoint's server: one daemon thread per connection, and a listen
+    backlog for the ``/boards`` routes' bursts of concurrent tenants
+    (socketserver's default of 5 resets connections past it)."""
+
+    daemon_threads = True
+    request_queue_size = 1024
+
+
 class MetricsServer:
     """Serve one registry's exposition — and any registered routes — until
     :meth:`close`."""
@@ -192,8 +201,7 @@ class MetricsServer:
             def log_message(self, fmt, *args):  # requests must not spam stdout
                 pass
 
-        self._server = ThreadingHTTPServer((host, port), Handler)
-        self._server.daemon_threads = True
+        self._server = _Server((host, port), Handler)
         self.port = self._server.server_address[1]
         self._thread = threading.Thread(
             target=self._server.serve_forever,

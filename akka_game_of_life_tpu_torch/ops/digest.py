@@ -16,8 +16,9 @@ blocks also bound scratch: a 65536² board never holds more than one block's
 int64 temporaries.  Row blocks with no set bit are skipped (they contribute
 nothing), which makes digests of sparse boards cheap.
 
-The numpy twins (``*_np``), ``merge_lanes``, ``value`` and ``format_digest``
-are copies of the JAX package's.
+The numpy twins (``*_np``), ``merge_lanes``, ``value``, ``format_digest``
+and ``BlockLaneCache`` are copies of the JAX package's;
+``digest_dense_batch`` folds a serving batch's per-board lanes.
 """
 
 from __future__ import annotations
@@ -133,6 +134,37 @@ def digest_planes(
     return total
 
 
+def digest_dense_batch(boards: torch.Tensor, widths) -> torch.Tensor:
+    """Per-board digest lanes of a batched ``[B, H, W]`` uint8 stack, the
+    serving plane's certification fold.  Returns a ``[B, 2]`` int64 tensor
+    of uint32 values, board b's row equal to :func:`digest_dense` of that
+    board alone at global width ``widths[b]``.
+
+    Boards of mixed logical shapes ride one stack zero-padded to the size
+    class: a padding cell holds state 0 and adds nothing, so each row
+    certifies exactly the board's live region (its index stream ``r ·
+    widths[b] + c`` is the one the single-board definition walks).  Rows
+    are summed and masked before the boards' sums, so no partial sum of
+    products (< 2⁴⁰ each) passes 2⁶³; boards go in chunks of at most
+    ``_BLOCK_ELEMS`` cells to bound the int64 scratch."""
+    b, h, w = boards.shape
+    dev = boards.device
+    if not isinstance(widths, torch.Tensor):
+        widths = torch.from_numpy(np.asarray(widths, dtype=np.int64))
+    widths = widths.to(device=dev, dtype=torch.int64)
+    out = torch.zeros((b, 2), dtype=torch.int64, device=dev)
+    rows = torch.arange(h, dtype=torch.int64, device=dev)[None, :, None]
+    cols = torch.arange(w, dtype=torch.int64, device=dev)[None, None, :]
+    step = max(1, _BLOCK_ELEMS // max(1, h * w))
+    for b0 in range(0, b, step):
+        state = boards[b0 : b0 + step].to(torch.int64)
+        idx = (rows * widths[b0 : b0 + step, None, None] + cols) & _MASK32
+        for lane, seed in enumerate(LANE_SEEDS):
+            row_sums = (state * _fmix32(idx ^ seed)).sum(dim=2) & _MASK32
+            out[b0 : b0 + step, lane] = row_sums.sum(dim=1) & _MASK32
+    return out
+
+
 # -- host (np) twins -----------------------------------------------------------
 
 _NP_BLOCK_ROWS = 1024
@@ -238,3 +270,59 @@ def value(lanes) -> int:
 def format_digest(v: int) -> str:
     """Canonical text form: 16 hex digits."""
     return f"{v:016x}"
+
+
+# -- block-granular lane reuse -------------------------------------------------
+
+
+class BlockLaneCache:
+    """Memoized per-block lane contributions for tiled re-digesting (a copy
+    of the JAX package's).
+
+    The digest is a sum over cells, so a board tiled into disjoint blocks
+    digests as the lane-wise sum of per-block contributions — and a block's
+    contribution depends only on (content, origin, board width).  Boards
+    that evolve by block substitution (the serve memo plane: most tiles of
+    a structured board are static or cycling between a few contents) keep
+    re-presenting the same (content, origin) pairs, so their whole-board
+    lanes reduce to dict hits plus one :func:`merge_lanes` fold instead of
+    an O(board) re-mix every epoch.
+
+    Keys are the caller's canonical content payloads (``ops/macroblock``
+    codec bytes) plus origin/width; values are (2,) uint32 lanes.  Bounded
+    LRU (``max_entries``); a miss just recomputes, so tightness costs speed,
+    never correctness."""
+
+    def __init__(self, max_entries: int = 1 << 16) -> None:
+        from collections import OrderedDict
+
+        self.max_entries = int(max_entries)
+        self._entries: "OrderedDict[tuple, np.ndarray]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def block_lanes(
+        self,
+        payload: bytes,
+        block: np.ndarray,
+        origin: Tuple[int, int],
+        width: int,
+    ) -> np.ndarray:
+        """The block's lane contribution at ``origin`` of a ``width``-wide
+        board: cached by (payload, origin, width), computed via
+        :func:`digest_dense_np` on miss."""
+        key = (payload, origin[0], origin[1], width)
+        lanes = self._entries.get(key)
+        if lanes is not None:
+            self._entries.move_to_end(key)
+            self.hits += 1
+            return lanes
+        self.misses += 1
+        lanes = digest_dense_np(block, origin, width)
+        self._entries[key] = lanes
+        while len(self._entries) > self.max_entries:
+            self._entries.popitem(last=False)
+        return lanes

@@ -9,7 +9,14 @@ chunks of up to ``exchange_width`` epochs by a chunk engine:
   (``csrc/packed_sweep.cu``) on a CUDA device, its plain version on the CPU;
   a worker given several devices (or ``cuda`` with several visible cards)
   row-shards each chunk's slab over them (:func:`_meshed_engine`);
-- ``engine="numpy"``: :func:`_np_chunk`, host stepping (the oracle).
+- ``engine="numpy"``: :func:`_np_chunk`, host stepping (the oracle);
+- ``engine="swar"``: the C++ SWAR chunk steppers (``native/engine.py``:
+  binary, WireWorld and Generations rules; any other rule through
+  :func:`_np_chunk`), host machine code built with g++ at construction;
+- ``engine="actor"`` / ``"actor-native"``: one stateful per-cell actor
+  engine per tile (``runtime/actor_engine.py`` or its C++ twin), built at
+  each (re)deploy and dropped with the tile; they step one epoch per
+  exchange (the frontend refuses them when ``exchange_width > 1``).
 
 The data plane is peer-to-peer, byte-compatible with the JAX package's
 workers (a cluster may mix the two): each tile pulls its halo at epoch E
@@ -21,8 +28,8 @@ digest-due epochs).  A stale pull re-asks the missing rings' owners with
 PEER_PULL under decorrelated-jitter backoff and escalates with GATHER_FAILED
 after ``max_pull_retries``.
 
-Not carried over (refused by name): the ``swar``, ``actor`` and
-``actor-native`` engines, and the serve plane and federation re-homing.
+Not carried over (refused by name): the ``jax`` engine (the port's device
+engine is ``torch``), and the serve plane and federation re-homing.
 ``P.PROFILE`` captures a ``torch.profiler`` window on a thread of its own.
 """
 
@@ -107,9 +114,9 @@ class _Tile:
         self.q_probe_backoff = 0
 
 
-ENGINES = ("torch", "numpy")
-# Engines of the JAX package that the port does not carry yet.
-_NOT_PORTED_ENGINES = ("jax", "swar", "actor", "actor-native")
+ENGINES = ("torch", "numpy", "swar", "actor", "actor-native")
+# The JAX package's device engine; the port's is ``torch``.
+_NOT_PORTED_ENGINES = ("jax",)
 
 
 def _check_pallas(pallas: Optional[str]) -> None:
@@ -332,6 +339,28 @@ def _meshed_engine(
         return fn(np.ascontiguousarray(padded, dtype=np.uint8), halo, h_out)
 
     return run
+
+
+def _swar_engine(rule: Rule) -> Callable[[np.ndarray, int, int], np.ndarray]:
+    """The ``swar`` chunk engine for ``rule``: the C++ SWAR stepper of its
+    family (binary life-like, WireWorld, Generations), else
+    :func:`_np_chunk` (the JAX package's wiring)."""
+    from akka_game_of_life_tpu_torch.native.engine import (
+        swar_chunk_native,
+        swar_gen_chunk_native,
+        swar_wire_chunk_native,
+    )
+
+    if rule.is_binary and rule.is_totalistic:
+        native = swar_chunk_native
+    elif rule.kind == "wireworld":
+        native = swar_wire_chunk_native
+    elif rule.is_totalistic:
+        # Generations (Rule() caps states at 255, so no extra gate).
+        native = swar_gen_chunk_native
+    else:
+        return lambda padded, steps, halo: _np_chunk(padded, steps, halo, rule)
+    return lambda padded, steps, halo: native(padded, steps, halo, rule)
 
 
 def _np_chunk(padded: np.ndarray, steps: int, halo: int, rule: Rule) -> np.ndarray:
@@ -616,6 +645,7 @@ class BackendWorker:
         "paused": "_lock",
         "target": "_lock",
         "origins": "_lock",
+        "_actor_engines": "_lock",
         "_peers": "_peer_lock",
         "_senders": "_sender_lock",
         "_pre_stop_hooks": "_pre_stop_lock",
@@ -653,6 +683,10 @@ class BackendWorker:
             )
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; use one of {ENGINES}")
+        if engine in ("swar", "actor-native"):
+            from akka_game_of_life_tpu_torch.native import load
+
+            load()  # the g++ build, before the worker joins; raises on failure
         self.host = host
         self.port = port
         self.name = name
@@ -796,6 +830,7 @@ class BackendWorker:
         self._inbox: "queue.SimpleQueue" = queue.SimpleQueue()
         self._reader: Optional[threading.Thread] = None
         self._step_chunk: Optional[Callable[[np.ndarray, int, int], np.ndarray]] = None
+        self._actor_engines: Dict[TileId, object] = {}
         self._lock = threading.RLock()
         self._stop = threading.Event()
         self.stopped_reason: Optional[str] = None
@@ -1512,6 +1547,7 @@ class BackendWorker:
             # stop stepping them; the new owner replays from the checkpoint.
             for tid in [t for t in self.tiles if self.owners.get(t, ("",))[0] != self.name]:
                 del self.tiles[tid]
+                self._actor_engines.pop(tid, None)
                 dropped.append(tid)
             self._owner_map = None  # wiring changed: publish cache is stale
         if dropped and self.store is not None:
@@ -1555,10 +1591,13 @@ class BackendWorker:
                     self._step_chunk = _torch_engine(
                         rule, pallas=self.pallas, device=self.device
                     )
-                else:
+                elif self.engine == "swar":
+                    self._step_chunk = _swar_engine(rule)
+                elif self.engine == "numpy":
                     self._step_chunk = (
                         lambda padded, steps, halo: _np_chunk(padded, steps, halo, rule)
                     )
+                # engine == "actor*": stateful per-tile engines, built below
             self.target = int(msg["target"])
             self.final_epoch = int(msg["final_epoch"])
             self.render_every = int(msg.get("render_every", 0))
@@ -1575,6 +1614,20 @@ class BackendWorker:
                 )
                 self.tiles[tid] = tile
                 self.origins[tid] = tuple(spec.get("origin", (0, 0)))
+                if self.engine == "actor":
+                    # A (re)deploy is a supervision restart: fresh actors,
+                    # histories reseeded from the deployed array.
+                    from akka_game_of_life_tpu_torch.runtime.actor_engine import (
+                        ActorTileEngine,
+                    )
+
+                    self._actor_engines[tid] = ActorTileEngine(rule)
+                elif self.engine == "actor-native":
+                    from akka_game_of_life_tpu_torch.native.engine import (
+                        NativeActorTileEngine,
+                    )
+
+                    self._actor_engines[tid] = NativeActorTileEngine(rule)
                 outbound.append((tid, tile.arr, tile.epoch))
                 for e in spec.get("rings") or []:
                     seed_rings.append(
@@ -1625,6 +1678,7 @@ class BackendWorker:
         with self._lock:
             if tid in self.tiles:
                 del self.tiles[tid]
+            self._actor_engines.pop(tid, None)
             self._owner_map = None  # tile dropped: publish cache is stale
         try:
             self.channel.send({"type": P.REDEPLOY_REQUEST, "tile": list(tid)})
@@ -1940,7 +1994,12 @@ class BackendWorker:
                     node=self.name or "backend", tile=str(tid), epoch=epoch,
                     chunk=c,
                 ):
-                    tile.arr = self._step_chunk(padded, c, self.exchange_width)
+                    if self.engine in ("actor", "actor-native"):
+                        # Actor engines exchange per-epoch (the frontend
+                        # rejects them when exchange_width > 1), so c == 1.
+                        tile.arr = self._actor_engines[tid].step(padded)
+                    else:
+                        tile.arr = self._step_chunk(padded, c, self.exchange_width)
                 tile.q_period = 0
                 ring, same_as = Ring.of(tile.arr, self.exchange_width), None
             if self.sparse_cluster:

@@ -13,12 +13,20 @@ processes with ``distributed`` (``coordinator_address``, ``num_processes``,
 the JAX package).  The standalone
 run also takes the linear-rule fast-forward (``ff_enabled``,
 ``ff_certify_steps``) and activity-gated stepping (``sparse_kernel``,
-``sparse_block``, ``sparse_threshold``).  ``load_config`` reads the same
-TOML or JSON files (``examples/headline-65536.toml`` loads unchanged) and
-accepts the same duration spellings ("5s", "3000ms").  A key the port does
-not support — a ``serve_*`` or federation ``frontend_*`` knob, ``backend``
-(the per-cell actor engines), or any other — raises a ``ValueError`` that
-names it, never a silent default.  A non-zero ``pallas_vmem_limit_mb`` is
+``sparse_block``, ``sparse_threshold``), and ``backend`` picks the engine
+under the standalone run: ``"tpu"`` (the JAX package's name for the
+stencil kernels, kept so config files load unchanged) or the per-cell
+actor engines ``"actor"`` / ``"actor-native"`` (host engines).  The
+single-process serving plane (``role = "serve"``) takes every ``serve_*``
+key with the JAX package's defaults and checks; ``serve_cluster = true``
+is refused by name (the serving cluster is a later slice of the port),
+while the cluster-only keys (``serve_shards``, ``serve_tile_chunk``,
+``serve_tiled_resident*``, ``serve_replicate*``) parse, validate and stay
+inert, as in the JAX package.  ``load_config`` reads the same TOML or JSON
+files (``examples/headline-65536.toml`` loads unchanged) and accepts the
+same duration spellings ("5s", "3000ms").  A key the port does not
+support — a federation ``frontend_*`` knob, or any other — raises a
+``ValueError`` that names it, never a silent default.  A non-zero ``pallas_vmem_limit_mb`` is
 refused by name too: the card has no Mosaic VMEM budget (the kernels keep
 their tiles in registers and small shared-memory rings).
 
@@ -39,6 +47,29 @@ import json
 import re
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional, Tuple
+
+def parse_size_classes(spec) -> Tuple[int, ...]:
+    """``"32,64,256"`` → (32, 64, 256): the serving plane's padded board
+    size classes, strictly ascending positive square sides.  Lives here
+    (not serve/) so config validation stays import-light —
+    :mod:`serve.batch` re-exports it."""
+    try:
+        classes = tuple(int(v) for v in str(spec).split(","))
+    except ValueError:
+        raise ValueError(f"unparseable serve size classes: {spec!r}") from None
+    if not classes or any(c <= 0 for c in classes) or any(
+        b <= a for a, b in zip(classes, classes[1:])
+    ):
+        raise ValueError(
+            f"serve size classes must be strictly ascending positive "
+            f"ints, got {spec!r}"
+        )
+    return classes
+
+
+# The standalone run's engines: "tpu" (the JAX package's name for the
+# stencil kernels, whatever the device) or the per-cell actor engines.
+BACKEND_CHOICES = ("tpu", "actor", "actor-native")
 
 # The JAX package's kernel names.  auto/pallas step through the CUDA kernels
 # (the packed sweep, the plane sweep, the LtL step; auto runs the dense
@@ -169,6 +200,9 @@ class SimulationConfig:
     pattern: Optional[str] = None
     pattern_offset: Tuple[int, int] = (2, 2)
     max_epochs: Optional[int] = None
+    # "tpu" (stencil kernels) | "actor" / "actor-native" (per-cell parity
+    # engines on the host).
+    backend: str = "tpu"
     kernel: str = "auto"
     # Output rows per block of the CUDA kernels under kernel="pallas" (a
     # compile-time tile variant, ``tune``'s answer); None = the kernel's own
@@ -274,6 +308,56 @@ class SimulationConfig:
     sparse_cluster: bool = False
     # -- cluster: observability --------------------------------------------
     obs_cost_interval_s: float = 5.0
+    # -- the serving plane (role = "serve"), the JAX package's knobs ---------
+    # Session-count cap per process.
+    serve_max_sessions: int = 1024
+    # Aggregate live-cell budget across every session.
+    serve_max_cells: int = 16_777_216
+    # Pending step-job bound; a full queue rejects new jobs (HTTP 429).
+    serve_queue_depth: int = 4096
+    # Per-request epoch bound (the scan length buckets to powers of two up
+    # to it; XOR-linear rules fast-forward past it).
+    serve_max_steps: int = 1024
+    # At most one batched program per serve_tick_s (0 = free-running).
+    serve_tick_s: float = 0.0
+    # Idle-session TTL (0 = never evict).
+    serve_ttl_s: float = 300.0
+    # Padded size classes (square sides, strictly ascending).
+    serve_size_classes: str = "32,64,128,256"
+    # The serving cluster: refused when on (a later slice of the port).
+    serve_cluster: bool = False
+    # Cluster-only knobs: parsed and validated, inert while serve_cluster
+    # is off (as in the JAX package).
+    serve_shards: int = 64
+    serve_tile_chunk: int = 8
+    serve_tiled_resident: bool = True
+    serve_tiled_resident_snapshot: int = 4
+    serve_tiled_resident_halo_timeout_s: float = 1.0
+    serve_replicate: bool = True
+    serve_replicate_every: int = 8
+    serve_replicate_interval_s: float = 0.25
+    serve_replicate_max_lag_s: float = 30.0
+    # Serve observability: per-request trace spans, the JSONL access log
+    # ("" = none), the SLO objectives and burn windows, the tenant cap.
+    serve_trace: bool = True
+    serve_slo_log: str = ""
+    serve_slo_availability: float = 0.999
+    serve_slo_latency_ms: float = 250.0
+    serve_slo_fast_window_s: float = 300.0
+    serve_slo_slow_window_s: float = 3600.0
+    serve_slo_max_tenants: int = 64
+    # The canary prober (serve/canary.py).
+    serve_canary: bool = False
+    serve_canary_interval_s: float = 2.0
+    serve_canary_side: int = 32
+    # Cross-tenant memoized macro-stepping (serve/memo.py).
+    serve_memo: bool = False
+    serve_memo_block: int = 64
+    serve_memo_max_mb: int = 256
+    serve_memo_hit_floor: float = 0.25
+    serve_memo_warmup: int = 16
+    serve_memo_disable_after: int = 3
+    serve_memo_certify_every: int = 64
 
     fault_injection: FaultInjectionConfig = dataclasses.field(
         default_factory=FaultInjectionConfig
@@ -285,6 +369,8 @@ class SimulationConfig:
     def __post_init__(self) -> None:
         if self.height <= 0 or self.width <= 0:
             raise ValueError(f"board must be positive, got {self.height}x{self.width}")
+        if self.backend not in BACKEND_CHOICES:
+            raise ValueError(f"unknown backend {self.backend!r}")
         if self.kernel not in KERNEL_CHOICES:
             raise ValueError(
                 f"unknown kernel {self.kernel!r}; choose from {KERNEL_CHOICES}"
@@ -333,7 +419,7 @@ class SimulationConfig:
                     f"probe_window {self.probe_window} out of bounds for "
                     f"{self.height}x{self.width}"
                 )
-        if self.role not in ("standalone", "frontend", "backend"):
+        if self.role not in ("standalone", "frontend", "backend", "serve"):
             raise ValueError(f"unknown role {self.role!r}")
         if not (0 <= self.metrics_port < 65536):
             raise ValueError(
@@ -413,6 +499,7 @@ class SimulationConfig:
             raise ValueError(
                 f"ring_queue_depth must be >= 1, got {self.ring_queue_depth}"
             )
+        self._check_serve()
         if self.exchange_width < 1:
             raise ValueError(f"exchange_width must be >= 1, got {self.exchange_width}")
         if self.exchange_width > 1:
@@ -426,6 +513,115 @@ class SimulationConfig:
                         f"epochs are never observable"
                     )
 
+    def _check_serve(self) -> None:
+        """The serving plane's checks, the JAX package's, in its order."""
+        if self.serve_cluster:
+            raise ValueError(
+                "serve_cluster=True (the serving cluster: sessions sharded "
+                "over backend workers) is not supported by the PyTorch port "
+                "yet: the serving cluster is a later slice of the port; the "
+                "single-process serving plane runs with serve_cluster off"
+            )
+        for name in (
+            "serve_max_sessions",
+            "serve_max_cells",
+            "serve_queue_depth",
+            "serve_max_steps",
+            "serve_shards",
+            "serve_tile_chunk",
+            "serve_replicate_every",
+            "serve_tiled_resident_snapshot",
+        ):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name}={getattr(self, name)} must be >= 1")
+        for name in (
+            "serve_tiled_resident_halo_timeout_s",
+            "serve_replicate_interval_s",
+            "serve_replicate_max_lag_s",
+        ):
+            if getattr(self, name) <= 0:
+                raise ValueError(f"{name}={getattr(self, name)} must be > 0")
+        if self.serve_tick_s < 0:
+            raise ValueError(
+                f"serve_tick_s={self.serve_tick_s} must be >= 0 (0 = "
+                f"free-running)"
+            )
+        if self.serve_ttl_s < 0:
+            raise ValueError(
+                f"serve_ttl_s={self.serve_ttl_s} must be >= 0 (0 = never "
+                f"evict)"
+            )
+        parse_size_classes(self.serve_size_classes)
+        if not 0.0 < self.serve_slo_availability < 1.0:
+            raise ValueError(
+                f"serve_slo_availability={self.serve_slo_availability} "
+                f"must be in (0, 1)"
+            )
+        if self.serve_slo_latency_ms <= 0:
+            raise ValueError(
+                f"serve_slo_latency_ms={self.serve_slo_latency_ms} must "
+                f"be > 0"
+            )
+        if self.serve_slo_fast_window_s <= 0:
+            raise ValueError(
+                f"serve_slo_fast_window_s={self.serve_slo_fast_window_s} "
+                f"must be > 0"
+            )
+        if self.serve_slo_slow_window_s < self.serve_slo_fast_window_s:
+            raise ValueError(
+                f"serve_slo_slow_window_s={self.serve_slo_slow_window_s} "
+                f"must be >= serve_slo_fast_window_s="
+                f"{self.serve_slo_fast_window_s}"
+            )
+        if self.serve_slo_max_tenants < 1:
+            raise ValueError(
+                f"serve_slo_max_tenants={self.serve_slo_max_tenants} "
+                f"must be >= 1"
+            )
+        if self.serve_canary_interval_s <= 0:
+            raise ValueError(
+                f"serve_canary_interval_s={self.serve_canary_interval_s} "
+                f"must be > 0"
+            )
+        if self.serve_canary_side < 1:
+            raise ValueError(
+                f"serve_canary_side={self.serve_canary_side} must be >= 1"
+            )
+        from akka_game_of_life_tpu_torch.ops.macroblock import MIN_BLOCK
+
+        if (
+            self.serve_memo_block < MIN_BLOCK
+            or self.serve_memo_block & (self.serve_memo_block - 1) != 0
+        ):
+            raise ValueError(
+                f"serve_memo_block={self.serve_memo_block} must be a "
+                f"power of two >= {MIN_BLOCK} (the macro-cell theorem "
+                f"needs B/4 halo epochs)"
+            )
+        if self.serve_memo_max_mb < 1:
+            raise ValueError(
+                f"serve_memo_max_mb={self.serve_memo_max_mb} must be >= 1"
+            )
+        if not 0.0 <= self.serve_memo_hit_floor <= 1.0:
+            raise ValueError(
+                f"serve_memo_hit_floor={self.serve_memo_hit_floor} must "
+                f"be in [0, 1]"
+            )
+        if self.serve_memo_warmup < 0:
+            raise ValueError(
+                f"serve_memo_warmup={self.serve_memo_warmup} must be >= 0"
+            )
+        if self.serve_memo_disable_after < 1:
+            raise ValueError(
+                f"serve_memo_disable_after={self.serve_memo_disable_after} "
+                f"must be >= 1"
+            )
+        if self.serve_memo_certify_every < 0:
+            raise ValueError(
+                f"serve_memo_certify_every={self.serve_memo_certify_every} "
+                f"must be >= 0 (0 = no sampled certification)"
+            )
+
     @property
     def shape(self) -> Tuple[int, int]:
         return (self.height, self.width)
@@ -438,7 +634,7 @@ CLUSTER_FIELDS = tuple(
     for f in dataclasses.fields(SimulationConfig)
     if f.name not in {
         "height", "width", "rule", "density", "seed", "pattern",
-        "pattern_offset", "max_epochs", "kernel", "pallas_block_rows",
+        "pattern_offset", "max_epochs", "backend", "kernel", "pallas_block_rows",
         "pallas_vmem_limit_mb", "steps_per_call", "halo_width", "mesh_shape",
         "distributed", "coordinator_address", "num_processes", "process_id",
         "checkpoint_dir", "checkpoint_every", "checkpoint_format",
@@ -471,7 +667,10 @@ _DURATION_FIELDS = {
     "rebalance_deadline_s", "obs_cost_interval_s", "obs_profile_max_s",
     "obs_profile_min_interval_s", "breaker_cooldown_s",
     "send_deadline_s", "delay_s", "partition_after_s", "partition_every_s",
-    "partition_heal_s",
+    "partition_heal_s", "serve_tick_s", "serve_ttl_s",
+    "serve_replicate_interval_s", "serve_replicate_max_lag_s",
+    "serve_tiled_resident_halo_timeout_s", "serve_slo_fast_window_s",
+    "serve_slo_slow_window_s", "serve_canary_interval_s",
 }
 
 # The reference's config spellings the JAX package also accepts.
@@ -548,6 +747,13 @@ def load_config(
         | (set(fi_kwargs) - _field_names(FaultInjectionConfig))
         | (set(nc_kwargs) - _field_names(NetworkChaosConfig))
     )
+    federation = [k for k in unsupported if k.startswith("frontend_")]
+    if federation:
+        raise ValueError(
+            f"config keys {federation} configure the frontend federation, "
+            f"which the PyTorch port does not support yet (a later slice "
+            f"of the port, with the serving cluster)"
+        )
     if unsupported:
         raise ValueError(
             f"config keys {unsupported} are not supported by the PyTorch "

@@ -35,7 +35,8 @@ class ClusterHarness:
         tracer=None,
     ):
         # engine="torch" steps on ``device`` (cuda unless "cpu" is passed;
-        # a worker raises without CUDA), engine="numpy" on the host.
+        # a worker raises without CUDA); "numpy", "swar", "actor" and
+        # "actor-native" step on the host.
         # registry/tracer isolate the cluster's metrics and spans; None =
         # the process defaults.  When config.net_chaos is enabled, the
         # frontend's NetworkChaos instance is shared by every worker, so

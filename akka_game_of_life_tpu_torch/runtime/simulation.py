@@ -13,7 +13,15 @@ device in one of three layouts, as in the JAX package:
 - ``sparse_kernel``: the dense cells as a host numpy array, which the
   activity-gated engine (``ops/sparse.py``) updates in place; only the
   active blocks' slabs (or, on a boiling board, the whole board) step on
-  the device.
+  the device;
+- ``backend = "actor"`` / ``"actor-native"``: the dense cells as a host
+  numpy array stepped by the per-cell actor engine
+  (``runtime/actor_engine.py``, or its C++ twin in ``native/``, built with
+  g++), the reference's own architecture (BASELINE config 1).  It is a host
+  engine by definition, as in the JAX package: it builds no device state,
+  observes on the CPU and ignores ``device``; a mesh, several processes,
+  ``sparse_kernel``, a kernel other than ``auto`` and the fast-forward are
+  refused by name.
 
 Every ``steps_per_call`` generations the run observes on the device
 (population of state 1, strided sample, probe window, digest) and
@@ -368,8 +376,9 @@ class Simulation:
         cluster_only = cluster_keys_set(config)
         if cluster_only:
             raise ValueError(
-                f"config keys {cluster_only} belong to the cluster roles "
-                f"(frontend/backend); the standalone run does not honour them"
+                f"config keys {cluster_only} belong to the cluster and serve "
+                f"roles (frontend/backend/serve); the standalone run does not "
+                f"honour them"
             )
         self.config = config
         if config.distributed:
@@ -393,7 +402,12 @@ class Simulation:
                     "injector for per-worker chaos."
                 )
         self.rank, self.world = pdist.process_info()
-        self.devices = resolve_devices(device)
+        self._actor_cls = self._actor_engine_for(config)
+        self._actor = None
+        self.devices = (
+            [torch.device("cpu")] if self._actor_cls is not None
+            else resolve_devices(device)
+        )
         # The mesh's slots: every process's devices, rank-major (a
         # collective when there are several processes).
         self._slots, self._owners = pmesh.global_slots(self.devices)
@@ -414,7 +428,9 @@ class Simulation:
             or self.world > 1
             or (len(self.devices) > 1 and not unsharded)
         )
-        if self._sparse is not None:
+        if self._actor_cls is not None:
+            self.kernel = config.backend
+        elif self._sparse is not None:
             # The gated engine owns the layout (dense cells on the host).
             if config.kernel not in ("auto", "dense"):
                 raise ValueError(
@@ -424,7 +440,7 @@ class Simulation:
             self.kernel = "sparse"
         else:
             self.kernel = self._resolve_kernel()
-        if self.kernel in ("dense", "ltl_sweep", "matmul", "sparse"):
+        if self.kernel in ("dense", "ltl_sweep", "matmul", "sparse", "actor", "actor-native"):
             self.layout = "dense"
         else:
             self.layout = "words" if self.rule.is_binary else "planes"
@@ -523,6 +539,40 @@ class Simulation:
         self._digest = None
         self.epoch = 0
         self.board = self._place(self._start_payload())
+
+    @property
+    def _host(self) -> bool:
+        """The board is a host numpy array (the gated or an actor engine)."""
+        return self._sparse is not None or self._actor_cls is not None
+
+    def _actor_engine_for(self, config: SimulationConfig):
+        """The per-cell actor board class for ``backend`` (None for the
+        stencil kernels), after the JAX package's checks; what it would
+        silently ignore is refused by name."""
+        if config.backend == "tpu":
+            return None
+        if config.sparse_kernel:
+            raise ValueError(
+                "sparse_kernel gates the stencil kernels; the per-cell "
+                "actor backends have no block structure to gate"
+            )
+        if config.mesh_shape is not None or config.distributed or self.world > 1:
+            raise ValueError(
+                f"backend={config.backend!r} is one host engine: unset "
+                f"mesh_shape/distributed (a mesh shards the stencil kernels)"
+            )
+        if config.kernel != "auto":
+            raise ValueError(
+                f"kernel={config.kernel!r} selects a stencil kernel; "
+                f"backend={config.backend!r} steps the per-cell actor engine"
+            )
+        if config.backend == "actor-native":
+            from akka_game_of_life_tpu_torch.native.engine import NativeActorBoard
+
+            return NativeActorBoard
+        from akka_game_of_life_tpu_torch.runtime.actor_engine import ActorBoard
+
+        return ActorBoard
 
     def _sparse_stepper_for(self, config: SimulationConfig):
         """The gated engine for ``sparse_kernel``, after the JAX package's
@@ -729,9 +779,13 @@ class Simulation:
         return payload
 
     def _place(self, payload: np.ndarray):
-        """A host payload on the run's device(s); the gated engine's board
-        stays on the host."""
-        if self._sparse is not None:
+        """A host payload on the run's device(s); the gated and the actor
+        engines' boards stay on the host.  An actor board is built afresh
+        from the payload at the current epoch (a supervision restart)."""
+        if self._actor_cls is not None:
+            self._actor = self._actor_cls(payload, self.rule)
+            self._actor_epoch0 = self.epoch  # the actor engine counts from 0
+        if self._host:
             return np.ascontiguousarray(payload, dtype=np.uint8)
         if self.mesh is not None:
             # Every rank holds the whole host payload; each places its own
@@ -743,13 +797,28 @@ class Simulation:
 
     def _stepper(self, k: int) -> Callable:
         if k not in self._steppers:
-            if self._sparse is not None:
+            if self._actor_cls is not None:
+                self._steppers[k] = self._actor_advance(k)
+            elif self._sparse is not None:
                 self._steppers[k] = self._sparse_advance(k)
             elif self.mesh is None:
                 self._steppers[k] = self._single_stepper(k)
             else:
                 self._steppers[k] = self._mesh_stepper(k)
         return self._steppers[k]
+
+    def _actor_advance(self, k: int) -> Callable:
+        """A k-epoch chunk of the actor engine's event loop; its history
+        below the new epoch is pruned (recovery rebuilds the engine from a
+        checkpoint and never replays in place)."""
+
+        def advance(_board: np.ndarray) -> np.ndarray:
+            target = self.epoch - self._actor_epoch0 + k
+            self._actor.advance_to(target)
+            self._actor.prune_histories_below(target - 1)
+            return self._actor.board_at_current()
+
+        return advance
 
     def _sparse_advance(self, k: int) -> Callable:
         """A k-epoch chunk of the gated engine, with its gauges after
@@ -913,6 +982,11 @@ class Simulation:
                 "off); advance() iterates as usual"
             )
         fastforward.kernel_offsets(self.rule)  # the linearity refusal
+        if self._actor_cls is not None:
+            raise ValueError(
+                "fast_forward needs the tpu backend's dense planes; the "
+                "per-cell actor backends iterate"
+            )
         if self.world > 1:
             raise ValueError(
                 "fast_forward is single-host (a meshed jump gathers the "
@@ -954,7 +1028,7 @@ class Simulation:
         """The board of a linear (binary) rule as one dense (H, W) uint8
         tensor on the run's device: unpacked there from words, gathered from
         a mesh, copied from the gated engine's host board."""
-        if self.mesh is not None or self._sparse is not None:
+        if self.mesh is not None or self._host:
             return torch.from_numpy(self.board_host()).to(self.device)
         if self.layout == "words":
             return bitpack.unpack(self.board)
@@ -963,7 +1037,7 @@ class Simulation:
     def _from_dense(self, dense: torch.Tensor):
         """Inverse of :meth:`_dense_board`: the board in this run's
         layout and placement."""
-        if self.mesh is not None or self._sparse is not None:
+        if self.mesh is not None or self._host:
             return self._place(self._pack(dense.cpu().numpy()))
         if self.layout == "words":
             return bitpack.pack(dense)
@@ -999,7 +1073,7 @@ class Simulation:
         """The board as device tensors, one per mesh slot.  The gated
         engine's host board is copied to the device (its next chunk writes
         it in place)."""
-        if self._sparse is not None:
+        if self._host:
             return [torch.from_numpy(self.board).to(self.device, copy=True)]
         return [self.board] if self.mesh is None else list(self.board)
 
@@ -1053,7 +1127,7 @@ class Simulation:
 
     def _cells(self, ys: np.ndarray, xs: np.ndarray) -> np.ndarray:
         """Host uint8 cells at the global rows ``ys`` × columns ``xs``."""
-        if self._sparse is not None:
+        if self._host:
             return self.board[np.ix_(ys, xs)]
         got = _HostFetch({"cells": self._cells_request(ys, xs, self._tiles())}).result()
         return self._join(self._all_ranks(got)["cells"])
@@ -1074,7 +1148,7 @@ class Simulation:
         uint32), gathered from the tiles on a mesh — O(board).  Across
         processes a collective: on every rank, or on rank ``dst`` only
         (None elsewhere)."""
-        if self._sparse is not None:
+        if self._host:
             return self.board.copy()
         if self.mesh is not None:
             return pmesh.gather(self.board, self.mesh, dst=dst)
@@ -1290,7 +1364,7 @@ class Simulation:
             if self.rank != 0:
                 pdist.barrier(f"ckpt-{epoch}")
                 return
-        elif npz or self._sparse is not None:
+        elif npz or self._host:
             # Bind the snapshot now: the loop replaces self.board while an
             # async save runs, and no stepper writes the tensor it was
             # given.  The gated engine's host board is the one that is
@@ -1298,7 +1372,7 @@ class Simulation:
             # the writer sees it.
             board = (
                 self._host_layout()
-                if self.mesh is not None or self._sparse is not None
+                if self.mesh is not None or self._host
                 else self.board
             )
         else:

@@ -53,6 +53,19 @@ through its CLI:
   tuned tile and reaches the default tile's digests;
 - ``selftest --kernel auto``, ``--kernel pallas`` and ``--kernel matmul`` on
   the card;
+- the serving plane: the ``serve`` role on ``cuda:0`` at the JAX package's
+  defaults, 1024 sessions (128 at 256², 384 at 128², 384 at 64², 128 at
+  32², some smaller than their class or not square; five rules and eight
+  replicators) created and stepped 64 epochs through ``/boards`` by
+  concurrent clients, every digest against the batched step on the CPU;
+  64 boards of 32² at the 1024-step bound and the replicators past it
+  (the fast-forward) against ``step_np``; the batched call per class timed
+  on the card; the memo router on 64 tenants of one gun board against the
+  memo-off router; ``serve --serve-canary on`` with no failed probe; then
+  SIGTERM drains each process (exit 130);
+- the host engines: ``run --backend actor-native`` at 256² against the
+  packed run's digests, and in-process clusters of ``swar`` workers at
+  4096² and ``actor-native`` workers at 512² against the torch engine's;
 - the banded-matmul stencil: one generation on each lane (f32, int8, bf16)
   of Conway and ``bugs`` at 16384² and a radius-10 box rule at 12288², bit
   for bit against the plain dense step (the f32 lane once more with TF32
@@ -91,6 +104,7 @@ import concurrent.futures
 import contextlib
 import io
 import json
+import multiprocessing
 import os
 import queue
 import re
@@ -1880,6 +1894,395 @@ def cluster_node_loss(toml: Path, want, tmp: Path, card):
     )
 
 
+# -- the serving plane and the host engines --------------------------------------
+
+# The serve mix: (boards, class side); every eighth board of a class is
+# smaller than its class or not square, and the 32² class carries
+# SERVE_REPLICATORS replicator boards for the linear-rule fast-forward.
+SERVE_MIX = [(128, 256), (384, 128), (384, 64), (128, 32)]
+SERVE_RAGGED = {256: (200, 256), 128: (128, 100), 64: (50, 60), 32: (20, 32)}
+SERVE_RULES = ["conway", "highlife", "seeds", "brians-brain", "star-wars"]
+SERVE_REPLICATORS = 8
+SERVE_EPOCHS = 64  # round 1: every board
+SERVE_LONG = 1024  # round 2: the step bound, on a sample of the 32² class
+SERVE_SAMPLE = 64
+SERVE_FF = 2048  # past the bound: the replicators' fast-forward
+SERVE_THREADS = 64  # concurrent HTTP clients
+# The memo plane's design traffic: tenants on one board (a Gosper gun and
+# its eater, period 30), 16 macro-rounds of the default 64-cell block.
+MEMO_TENANTS = 64
+MEMO_SIDE = 256
+MEMO_EPOCHS = 256
+CANARY_INTERVAL = "0.5s"
+CANARY_WAIT_S = 5.0
+# Host engines: run --backend actor-native, and in-process clusters of swar
+# workers at 4096² and of actor-native workers.  The per-cell engine steps
+# about 0.6 M cell-epochs/s on one host core, so its cluster runs at 512²,
+# 8 epochs (4096² x 40 epochs would take ~20 minutes).
+ACTOR_RUN = dict(side=256, epochs=32, spc=8)
+SWAR_CLUSTER = dict(side=4096, epochs=40, width=10)
+ACTOR_CLUSTER = dict(side=512, epochs=8, width=1)
+
+
+def _http(base, method, path, doc=None, timeout=120):
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(doc).encode() if doc is not None else None
+    req = urllib.request.Request(base + path, data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            body = resp.read()
+            return resp.status, (json.loads(body) if path != "/metrics" else body.decode())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _histogram(text: str, name: str):
+    """(cumulative buckets [(le, count)], sum, count) of a histogram in a
+    Prometheus exposition."""
+    buckets = [
+        (float(m.group(1)), float(m.group(2)))
+        for m in re.finditer(rf'^{name}_bucket{{le="([^"]+)"}} (\S+)$', text, re.M)
+    ]
+    total = float(re.search(rf"^{name}_sum (\S+)$", text, re.M).group(1))
+    count = float(re.search(rf"^{name}_count (\S+)$", text, re.M).group(1))
+    return buckets, total, count
+
+
+def _quantile_bound(buckets, count, q):
+    """The upper bound of the bucket holding quantile ``q``."""
+    for le, cum in buckets:
+        if cum >= q * count:
+            return le
+    return float("inf")
+
+
+def serve_specs():
+    """The 1024 sessions of the serve mix: (rule, height, width, seed, class)."""
+    specs = []
+    for boards, side in SERVE_MIX:
+        for i in range(boards):
+            h, w = SERVE_RAGGED[side] if i % 8 == 7 else (side, side)
+            rule = SERVE_RULES[i % len(SERVE_RULES)]
+            if side == 32 and i % 16 == 3 and sum(s[0] == "replicator" for s in specs) < SERVE_REPLICATORS:
+                rule = "replicator"
+            specs.append((rule, h, w, 1000 + len(specs), side))
+    return specs
+
+
+def _class_batches(specs, steps, pad: bool):
+    """Per size class: (indices, the batch operands of ``batch_step_fn``
+    with every board at ``steps``), boards made as the server makes them,
+    the batch padded to a power of two as the server pads it or not."""
+    import numpy as np
+
+    from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
+    from akka_game_of_life_tpu_torch.serve import batch as sbatch
+    from akka_game_of_life_tpu_torch.utils.patterns import random_grid
+
+    out = {}
+    for _, side in SERVE_MIX:
+        idx = [i for i, s in enumerate(specs) if s[4] == side]
+        b = sbatch.next_pow2(len(idx)) if pad else len(idx)
+        boards = np.zeros((b, side, side), np.uint8)
+        ops = [np.zeros(b, np.uint32), np.zeros(b, np.uint32), np.full(b, 2, np.int32)]
+        hs, ws, ns = np.ones(b, np.int32), np.ones(b, np.int32), np.zeros(b, np.int32)
+        for j, i in enumerate(idx):
+            rule, h, w, seed, _ = specs[i]
+            boards[j, :h, :w] = random_grid((h, w), density=0.5, seed=seed)
+            ops[0][j], ops[1][j], ops[2][j] = sbatch.rule_operands(resolve_rule(rule))
+            hs[j], ws[j], ns[j] = h, w, steps
+        out[side] = (idx, (boards, *ops, hs, ws, ns))
+    return out
+
+
+def _start_serve(tmp: Path, name: str, *flags):
+    """A ``serve --device cuda:0`` process on an ephemeral port; returns
+    (process, base URL, lines queue)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.Popen(
+        _port_cli("serve", "--device", SINGLE, "--metrics-port", "0", *flags),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=tmp,
+    )
+    lines: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=_reader, args=(proc, OUT / f"{name}.log", lines), daemon=True).start()
+    m = _await_line(lines, r"on :(\d+)", time.monotonic() + WAIT_S, f"{name} banner")
+    return proc, f"http://127.0.0.1:{m.group(1)}", lines
+
+
+@contextlib.contextmanager
+def _serving(tmp: Path, name: str, *flags):
+    """A ``serve`` process for the block; on a clean exit SIGTERM must
+    drain its router and exit 130, on an error it is killed."""
+    proc, base, lines = _start_serve(tmp, name, *flags)
+    try:
+        yield base
+    except BaseException:
+        proc.kill()
+        proc.wait(timeout=30)
+        raise
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    check(rc == 130, f"{name} exited {rc} on SIGTERM, expected 130")
+    text = (OUT / f"{name}.log").read_text()
+    check("serve: drained" in text, f"{name} did not drain")
+
+
+def _steps_ok(results, epoch, what):
+    for status, doc in results:
+        check(status == 200, f"{what}: {status} {doc}")
+        check(doc["epoch"] == epoch, f"{what}: epoch {doc['epoch']} != {epoch}")
+
+
+def _timed(pool, fn, items):
+    """``fn`` over ``items`` on the pool: (results, wall s, per-call s)."""
+    def one(item):
+        t0 = time.perf_counter()
+        res = fn(item)
+        return res, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    got = list(pool.map(one, items))
+    return [g[0] for g in got], time.perf_counter() - t0, sorted(g[1] for g in got)
+
+
+def _oracle_digest(spec):
+    """The numpy oracle's digest of a served board after ``steps`` epochs
+    (a process pool's task: ``step_np`` is single-threaded numpy)."""
+    from akka_game_of_life_tpu_torch.ops import digest as odigest
+    from akka_game_of_life_tpu_torch.ops.npkernel import step_np
+    from akka_game_of_life_tpu_torch.utils.patterns import random_grid
+
+    rule, h, w, seed, steps = spec
+    board = random_grid((h, w), density=0.5, seed=seed)
+    for _ in range(steps):
+        board = step_np(board, rule)
+    return odigest.format_digest(odigest.value(odigest.digest_dense_np(board)))
+
+
+def serve_phase(tmp: Path, card):
+    """The ``serve`` role on the card at the JAX package's defaults: 1024
+    sessions (16,384,000 cells at most) created and stepped through
+    ``/boards`` by concurrent clients, every board's digest held against a
+    CPU reference."""
+    import numpy as np
+
+    from akka_game_of_life_tpu_torch import bench
+    from akka_game_of_life_tpu_torch.ops import digest as odigest
+    from akka_game_of_life_tpu_torch.serve import batch as sbatch
+
+    specs = serve_specs()
+    cells = sum(h * w for _, h, w, _, _ in specs)
+    check(len(specs) == sum(n for n, _ in SERVE_MIX) and cells <= 16_777_216,
+          f"{len(specs)} sessions, {cells} cells")
+    with _serving(tmp, "serve") as base, concurrent.futures.ThreadPoolExecutor(SERVE_THREADS) as pool:
+        created, create_s, _ = _timed(pool, lambda s: _http(base, "POST", "/boards", {
+            "tenant": f"t{s[3] % 16}", "rule": s[0], "height": s[1], "width": s[2], "seed": s[3],
+        }), specs)
+        for status, doc in created:
+            check(status == 201, f"create: {status} {doc}")
+        sids = [doc["id"] for _, doc in created]
+        before = _http(base, "GET", "/metrics")[1]
+        stepped, round1_s, lat1 = _timed(
+            pool, lambda sid: _http(base, "POST", f"/boards/{sid}/step", {"steps": SERVE_EPOCHS}), sids)
+        _steps_ok(stepped, SERVE_EPOCHS, "round 1")
+        after = _http(base, "GET", "/metrics")[1]
+
+        # Round 1 against the batched step on the CPU, class by class; the
+        # same batches timed on the card (CUDA events).
+        padded = _class_batches(specs, SERVE_EPOCHS, pad=True)
+        batch_ms, ref_s = {}, 0.0
+        for side, (idx, ops) in _class_batches(specs, SERVE_EPOCHS, pad=False).items():
+            t0 = time.perf_counter()
+            _, lanes = sbatch.batch_step_fn(side, SERVE_EPOCHS, "cpu")(*ops)
+            ref_s += time.perf_counter() - t0
+            ops = padded[side][1]
+            fn = sbatch.batch_step_fn(side, SERVE_EPOCHS, SINGLE)
+            _, card_lanes = fn(*ops)
+            check(np.array_equal(card_lanes[: len(idx)].cpu().numpy(), lanes.numpy()),
+                  f"class {side}: the card's lanes differ from the CPU's")
+            for j, i in enumerate(idx):
+                want = odigest.format_digest(odigest.value(lanes[j].numpy()))
+                check(stepped[i][1]["digest"] == want,
+                      f"round 1 board {i} {specs[i][:3]}: {stepped[i][1]['digest']} != {want}")
+            batch_ms[side] = bench.time_ms(lambda: fn(*ops), reps=3, warmup=1)
+        tick_b, tick_sum1, tick_n1 = _histogram(after, "gol_serve_tick_seconds")
+        _, tick_sum0, tick_n0 = _histogram(before, "gol_serve_tick_seconds")
+        size_b, _, size_n = _histogram(after, "gol_serve_batch_boards")
+        step_b, step_sum, step_n = _histogram(after, "gol_serve_step_seconds")
+        tick_s = tick_sum1 - tick_sum0
+        device_s = sum(batch_ms.values()) / 1e3
+
+        # Round 2: a sample of the 32² class at the step bound, and the
+        # replicators past it (the fast-forward), against the numpy oracle.
+        small = [i for i, s in enumerate(specs) if s[4] == 32 and s[0] != "replicator"][:SERVE_SAMPLE]
+        reps = [i for i, s in enumerate(specs) if s[0] == "replicator"]
+        long_, round2_s, lat2 = _timed(
+            pool, lambda i: _http(base, "POST", f"/boards/{sids[i]}/step", {"steps": SERVE_LONG}), small)
+        _steps_ok(long_, SERVE_EPOCHS + SERVE_LONG, "round 2")
+        jumped, ff_s, _ = _timed(
+            pool, lambda i: _http(base, "POST", f"/boards/{sids[i]}/step", {"steps": SERVE_FF}), reps)
+        _steps_ok(jumped, SERVE_EPOCHS + SERVE_FF, "fast-forward")
+        ff_count = float(re.search(r"^gol_serve_ff_jumps_total (\S+)$",
+                                   _http(base, "GET", "/metrics")[1], re.M).group(1))
+        check(ff_count == len(reps), f"{ff_count} fast-forward jumps, expected {len(reps)}")
+
+        t0 = time.perf_counter()
+        tasks = [(*specs[i][:4], SERVE_EPOCHS + SERVE_LONG) for i in small]
+        tasks += [(*specs[i][:4], SERVE_EPOCHS + SERVE_FF) for i in reps]
+        spawn = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(os.cpu_count() or 4, mp_context=spawn) as procs:
+            wants = list(procs.map(_oracle_digest, tasks))
+        ref_s += time.perf_counter() - t0
+        for (status, doc), want, i in zip(long_ + jumped, wants, small + reps):
+            check(doc["digest"] == want, f"board {i} {specs[i][:3]}: {doc['digest']} != {want}")
+    emit(
+        "serve", config=f"serve --device {SINGLE} (JAX defaults: 1024 sessions, 16777216 cells, "
+        "classes 32,64,128,256, max_steps 1024)", sessions=len(specs), cells=cells,
+        mix={side: n for n, side in SERVE_MIX}, rules=SERVE_RULES + ["replicator"],
+        create_s=create_s, round1_s=round1_s, round1_boards_per_s=len(sids) / round1_s,
+        round1_cell_updates_per_s=cells * SERVE_EPOCHS / round1_s,
+        round1_client_p50_s=lat1[len(lat1) // 2], round1_client_p99_s=lat1[int(len(lat1) * 0.99)],
+        batch_ms_per_class={str(k): v for k, v in batch_ms.items()},
+        batch_sizes_cumulative={str(le): c for le, c in size_b}, batches=size_n,
+        tick_seconds_round1=tick_s, ticks_round1=tick_n1 - tick_n0,
+        step_seconds_p50_le=_quantile_bound(step_b, step_n, 0.5),
+        step_seconds_p99_le=_quantile_bound(step_b, step_n, 0.99),
+        step_seconds_mean=step_sum / step_n,
+        host_share_est=1.0 - device_s / tick_s if tick_s > 0 else None,
+        round2_boards=len(small), round2_s=round2_s, round2_client_p99_s=lat2[int(len(lat2) * 0.99)],
+        ff_boards=len(reps), ff_s=ff_s, cpu_reference_s=ref_s, card=card["name_power"],
+    )
+
+
+def _gun_board():
+    import numpy as np
+
+    from akka_game_of_life_tpu_torch.utils.patterns import get_pattern
+
+    gun, eater = get_pattern("gosper-glider-gun"), get_pattern("eater")
+    board = np.zeros((MEMO_SIDE, MEMO_SIDE), np.uint8)
+    board[10 : 10 + gun.shape[0], 10 : 10 + gun.shape[1]] = gun
+    board[50 : 50 + eater.shape[0], 63 : 63 + eater.shape[1]] = eater
+    return board
+
+
+def memo_phase(card):
+    """``serve --serve-memo on``'s router on the card: MEMO_TENANTS tenants
+    stepping the same gun board from concurrent clients; digests equal to
+    the memo-off router's."""
+    from akka_game_of_life_tpu_torch.obs.programs import get_programs
+    from akka_game_of_life_tpu_torch.ops import digest as odigest
+    from akka_game_of_life_tpu_torch.runtime.config import SimulationConfig
+    from akka_game_of_life_tpu_torch.serve import SessionRouter
+
+    board = _gun_board()
+    got, walls, hit_rate = {}, {}, None
+    for memo in (True, False):
+        router = SessionRouter(SimulationConfig(role="serve", serve_memo=memo), device=SINGLE)
+        with router:
+            sids = [router.create(tenant=f"m{i}", height=MEMO_SIDE, width=MEMO_SIDE, seed=0,
+                                  density=0.0, with_board=False)["id"] for i in range(MEMO_TENANTS)]
+            with router._lock:  # the API seeds random boards; this traffic is one board
+                for sid in sids:
+                    sess = router._sessions[sid]
+                    sess.board = board.copy()
+                    sess.lanes = odigest.digest_dense_np(board)
+                    sess.population = int(board.sum())
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(MEMO_TENANTS) as pool:
+                got[memo] = list(pool.map(lambda sid: router.step(sid, MEMO_EPOCHS), sids))
+            walls[memo] = time.perf_counter() - t0
+            if memo:
+                hit_rate = router.metrics.value("gol_serve_memo_hit_rate")
+                epochs = sum(router.metrics.value("gol_serve_memo_epochs_total", tenant=f"m{i}") or 0
+                             for i in range(MEMO_TENANTS))
+                check(epochs > 0, "the memo plane carried no epochs")
+    check(got[True] == got[False], "memo digests differ from memo-off")
+    check(len(set(got[True])) == 1, "tenants of one board diverged")
+    families = get_programs().family_summary()
+    emit("serve_memo", tenants=MEMO_TENANTS, side=MEMO_SIDE, epochs=MEMO_EPOCHS,
+         digest=f"{got[True][0][1]:016x}", memo_wall_s=walls[True], dense_wall_s=walls[False],
+         hit_rate=hit_rate, memo_epochs=epochs,
+         programs={f: families.get(f, {}).get("programs") for f in ("serve_batch", "serve_memo")},
+         card=card["name_power"])
+
+
+def canary_phase(tmp: Path, card):
+    """``serve --serve-canary on`` for a few seconds: probes certified, none
+    failed."""
+    with _serving(tmp, "serve_canary", "--serve-canary", "on",
+                  "--serve-canary-interval-s", CANARY_INTERVAL) as base:
+        time.sleep(CANARY_WAIT_S)
+        text = _http(base, "GET", "/metrics")[1]
+    probes = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r'^gol_canary_probes_total{outcome="([^"]+)"} (\S+)$', text, re.M)}
+    failures = re.search(r"^gol_canary_failures_total (\S+)$", text, re.M)
+    check(probes.get("ok", 0) >= 3, f"canary probes {probes}")
+    check(failures is None or float(failures.group(1)) == 0, f"canary failures: {failures.group(1)}")
+    check(set(probes) == {"ok"}, f"canary outcomes {probes}")
+    emit("serve_canary", probes=probes, seconds=CANARY_WAIT_S, card=card["name_power"])
+
+
+def _harness_run(config, engine, device=None):
+    from akka_game_of_life_tpu_torch.runtime.harness import ClusterHarness
+
+    h = ClusterHarness(config, 2, engine=engine, device=device)
+    try:
+        check(h.frontend.wait_for_backends(timeout=60), f"{engine} workers did not join")
+        t0 = time.perf_counter()
+        h.frontend.start_simulation()
+        check(h.frontend.done.wait(WAIT_S), f"{engine} cluster did not finish")
+        wall = time.perf_counter() - t0
+        check(h.frontend.error is None, f"{engine} cluster: {h.frontend.error}")
+        return dict(h.frontend.epoch_digests), wall
+    finally:
+        h.shutdown()
+
+
+def host_engines_phase(card):
+    """The host engines on the card's machine (host-CPU walls): ``run
+    --backend actor-native`` against the packed run, and in-process clusters
+    of swar and actor-native workers against the torch engine's on the
+    card."""
+    from akka_game_of_life_tpu_torch.runtime.config import SimulationConfig
+
+    r = ACTOR_RUN
+    argv = ["run", "--height", str(r["side"]), "--width", str(r["side"]), "--seed", "3",
+            "--max-epochs", str(r["epochs"]), "--steps-per-call", str(r["spc"]),
+            "--metrics-every", str(r["spc"]), "--obs-digest", "--device", SINGLE]
+    packed_text, packed_s = run_cli(argv, "actor_packed.log")
+    actor_text, actor_s = run_cli(argv + ["--backend", "actor-native"], "actor_native.log")
+    packed, _ = parse_run(packed_text)
+    actor, _ = parse_run(actor_text)
+    check(sorted(actor) == list(range(r["spc"], r["epochs"] + 1, r["spc"])), f"actor epochs {sorted(actor)}")
+    check(actor == packed, f"run --backend actor-native digests {actor} != packed {packed}")
+    check('"kernel": "actor-native"' in actor_text, "the run summary does not name the engine")
+    walls = {}
+    for name, c, engines in (("swar", SWAR_CLUSTER, ("swar",)),
+                             ("actor", ACTOR_CLUSTER, ("actor-native",))):
+        config = lambda: SimulationConfig(  # noqa: E731 - a fresh config per cluster
+            height=c["side"], width=c["side"], seed=7, max_epochs=c["epochs"],
+            exchange_width=c["width"], metrics_every=c["epochs"] // 2 if c["width"] == 1 else c["width"],
+            obs_digest=True)
+        want, walls[f"torch_{name}"] = _harness_run(config(), "torch", SINGLE)
+        check(len(want) >= 2, f"torch cluster digests {want}")
+        for engine in engines:
+            got, walls[engine] = _harness_run(config(), engine)
+            check(got == want, f"{engine} cluster digests {got} != torch {want}")
+    emit("host_engines", host_cpu_walls_s=dict(walls, actor_run=actor_s, packed_run=packed_s),
+         actor_run=r, swar_cluster=SWAR_CLUSTER, actor_cluster=ACTOR_CLUSTER,
+         note="actor/swar walls are host-CPU numbers of the card's machine",
+         card=card["name_power"])
+
+
+
 # -- several processes ----------------------------------------------------------
 
 
@@ -2587,6 +2990,13 @@ def main() -> int:
         phase("dist_orbax", dist_orbax, dist, headline, tmp, card)
         launches["worker_mesh"], meshed_chunk_ms = phase(
             "worker_mesh", worker_mesh, toml, want, card, rng)
+        # The serving plane and the host engines: no hand kernel on these
+        # paths (the batched step is PyTorch on the card, as the JAX
+        # package's is XLA), so they add no line to the kernels table.
+        phase("serve", serve_phase, tmp, card)
+        phase("serve_memo", memo_phase, card)
+        phase("serve_canary", canary_phase, tmp, card)
+        phase("host_engines", host_engines_phase, card)
     torch.cuda.empty_cache()
 
     # -- 5. times on the card at the main paths' shapes ------------------------

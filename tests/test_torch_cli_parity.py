@@ -1,10 +1,11 @@
-"""The port's ``run`` and ``frontend`` take the JAX package's command lines.
+"""The port's ``run``, ``frontend`` and ``serve`` take the JAX package's
+command lines.
 
 Both parsers are built (each ``main`` is stopped at its ``parse_args``), and
-every option string the JAX parser gives ``run`` or ``frontend`` must parse
-in the port's, with a sample value of the JAX option's own kind (every
-choice of a choice option), apart from the refusals listed below.  Then the
-flags the port added for keys it honours reach the config.
+every option string the JAX parser gives ``run``, ``frontend`` or ``serve``
+must parse in the port's, with a sample value of the JAX option's own kind
+(every choice of a choice option), apart from the refusals listed below.
+Then the flags the port added for keys it honours reach the config.
 """
 
 import argparse
@@ -20,14 +21,17 @@ _NOT_PORTED = "not ported yet (ROADMAP queue 1)"
 REFUSED = {
     "run": {
         "--platform": "the JAX backend's platform; the port names its device with --device",
-        "--backend": f"the actor engines: {_NOT_PORTED}",
         "--sparse-cluster": "a cluster key, which the standalone run refuses by name",
     },
 }
 REFUSED["frontend"] = {
     **{k: v for k, v in REFUSED["run"].items() if k != "--sparse-cluster"},
-    "--serve-*": f"the serving plane: {_NOT_PORTED}",
+    "--serve-*": f"the serving cluster (the frontend's /boards): {_NOT_PORTED}",
     "--frontend-*": f"the frontends' federation: {_NOT_PORTED}",
+}
+REFUSED["serve"] = {
+    "--platform": REFUSED["run"]["--platform"],
+    "--frontend-*": REFUSED["frontend"]["--frontend-*"],
 }
 SAMPLES = {"--mesh": "1x1", "--tick": "10ms", "--probe-window": "0:2,0:2"}
 
@@ -78,7 +82,7 @@ def _command_lines(action: argparse.Action, option: str):
     return [[option, "2"]]
 
 
-@pytest.mark.parametrize("role", ["run", "frontend"])
+@pytest.mark.parametrize("role", ["run", "frontend", "serve"])
 def test_every_jax_option_parses_in_the_port(role):
     jax_role, port_role = _subparser(jmain, role), _subparser(tcli.main, role)
     unparsed, checked = [], 0
@@ -95,7 +99,7 @@ def test_every_jax_option_parses_in_the_port(role):
     assert checked > 40
 
 
-@pytest.mark.parametrize("role", ["run", "frontend"])
+@pytest.mark.parametrize("role", ["run", "frontend", "serve"])
 def test_refusals_are_options_of_the_jax_parser(role):
     """Every refusal names a JAX option the port's parser really lacks."""
     jax_role, port_role = _subparser(jmain, role), _subparser(tcli.main, role)
@@ -184,3 +188,58 @@ def test_the_frontend_ignores_the_run_only_flags():
         "--sparse-threshold", "0.25", "--ff-enabled", "off", "--ff-certify-steps", "3",
     ])))
     assert stepped == plain
+
+
+def test_every_serve_flag_maps_to_config():
+    """Every ``--serve-X`` flag of the port's ``serve`` sets
+    ``SimulationConfig.serve_X`` and nothing else, and every ``serve_*``
+    field has its flag (the JAX package's bijection)."""
+    import dataclasses
+
+    role = _subparser(tcli.main, "serve")
+    flags = {o for o in role._option_string_actions if o.startswith("--serve-")}
+    fields = {f.name for f in dataclasses.fields(load_config(None))} & {
+        "serve_" + f[len("--serve-"):].replace("-", "_") for f in flags
+    }
+    assert {f.replace("_", "-") for f in fields} == {f[2:] for f in flags}
+    assert fields == {
+        f.name for f in dataclasses.fields(load_config(None)) if f.name.startswith("serve_")
+    }
+    base = load_config(None, tcli._serve_overrides(role.parse_args([])))
+    samples = {"--serve-size-classes": "16,32", "--serve-slo-log": "a.log",
+               "--serve-slo-availability": "0.99", "--serve-memo-block": "32",
+               "--serve-memo-hit-floor": "0.5", "--serve-slo-slow-window-s": "900"}
+    for flag in sorted(flags - {"--serve-cluster"}):  # refused: the next test
+        action = role._option_string_actions[flag]
+        name = "serve_" + flag[len("--serve-"):].replace("-", "_")
+        if action.choices:
+            value = "off" if getattr(base, name) else "on"
+        else:
+            value = samples.get(flag, "7")
+        cfg = load_config(None, tcli._serve_overrides(role.parse_args([flag, value])))
+        changed = [f.name for f in dataclasses.fields(cfg) if getattr(cfg, f.name) != getattr(base, f.name)]
+        assert changed == [name], (flag, changed)
+
+
+def test_serve_refuses_the_cluster_and_federation_by_name():
+    role = _subparser(tcli.main, "serve")
+    with pytest.raises(ValueError, match="serving cluster is a later slice"):
+        load_config(None, tcli._serve_overrides(role.parse_args(["--serve-cluster", "on"])))
+    with pytest.raises(ValueError, match="frontend federation"):
+        load_config(None, {"frontend_seeds": "127.0.0.1:9000"})
+    # The cluster-only knobs parse, validate and stay inert, as in the JAX package.
+    cfg = load_config(None, tcli._serve_overrides(role.parse_args(["--serve-shards", "8"])))
+    assert cfg.serve_shards == 8 and not cfg.serve_cluster
+    with pytest.raises(ValueError, match="serve_shards=0 must be >= 1"):
+        load_config(None, {"serve_shards": 0})
+
+
+def test_run_backend_and_worker_engines_reach_their_roles():
+    args = _subparser(tcli.main, "run").parse_args(["--backend", "actor-native"])
+    assert load_config(None, tcli._run_overrides(args)).backend == "actor-native"
+    backend = _subparser(tcli.main, "backend")
+    for engine in ("torch", "numpy", "swar", "actor", "actor-native"):
+        assert backend.parse_args(["--engine", engine]).engine == engine
+    jax_engines = set(_subparser(jmain, "backend")._option_string_actions["--engine"].choices)
+    port_engines = set(backend._option_string_actions["--engine"].choices)
+    assert jax_engines - port_engines == {"jax"}

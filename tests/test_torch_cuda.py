@@ -741,3 +741,78 @@ if __name__ == "__main__":
     import sys
 
     _dist_worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+
+
+# -- the serving plane (slice 10): the batched step on the card ------------------
+
+SERVE_RULES = ["conway", "highlife", "seeds", "brians-brain", "star-wars"]
+
+
+def _serve_mix(cls, b, length, seed):
+    from akka_game_of_life_tpu_torch.serve import batch as sbatch
+
+    rng = np.random.default_rng(seed)
+    boards = np.zeros((b, cls, cls), np.uint8)
+    ops = [np.zeros(b, np.uint32), np.zeros(b, np.uint32), np.full(b, 2, np.int32)]
+    hs, ws, ns = np.ones(b, np.int32), np.ones(b, np.int32), np.zeros(b, np.int32)
+    for i in range(b):
+        rule = resolve_rule(SERVE_RULES[i % len(SERVE_RULES)])
+        h, w = (cls, cls) if i % 3 == 0 else (int(rng.integers(1, cls + 1)), int(rng.integers(1, cls + 1)))
+        boards[i, :h, :w] = rng.integers(0, rule.states, (h, w))
+        ops[0][i], ops[1][i], ops[2][i] = sbatch.rule_operands(rule)
+        hs[i], ws[i], ns[i] = h, w, int(rng.integers(0, length + 1))
+    return boards, ops, hs, ws, ns
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", [32, 64, 128, 256])
+def test_serve_batch_step_on_card_matches_cpu(cls):
+    _need_gpu()
+    from akka_game_of_life_tpu_torch.serve import batch as sbatch
+
+    boards, (birth, survive, states), hs, ws, ns = _serve_mix(cls, 16, 16, cls)
+    got = sbatch.batch_step_fn(cls, 16, "cuda")(boards, birth, survive, states, hs, ws, ns)
+    want = sbatch.batch_step_fn(cls, 16, "cpu")(boards, birth, survive, states, hs, ws, ns)
+    assert got[0].is_cuda and got[1].is_cuda
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    for block in (b for b in (16, 32, 64) if b <= cls):
+        blocks = boards[:8, :block, :block].copy()
+        got = sbatch.memo_block_step_fn(block, "cuda")(blocks, birth[:8], survive[:8], states[:8])
+        want = sbatch.memo_block_step_fn(block, "cpu")(blocks, birth[:8], survive[:8], states[:8])
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_serve_digest_batch_on_card_matches_per_board():
+    _need_gpu()
+    from akka_game_of_life_tpu_torch.ops import digest as odigest
+
+    boards, _, hs, ws, _ = _serve_mix(256, 24, 1, 7)
+    lanes = odigest.digest_dense_batch(torch.from_numpy(boards).cuda(), ws).cpu().numpy()
+    for i in range(len(boards)):
+        want = odigest.digest_dense_np(boards[i, : hs[i], : ws[i]])
+        np.testing.assert_array_equal(lanes[i].astype(np.uint32), want)
+
+
+@pytest.mark.cuda
+def test_serve_router_on_card_matches_cpu():
+    """One scripted session set (mixed rules and classes, a replicator
+    fast-forward past the bound) gives the same answers on both devices."""
+    _need_gpu()
+    from akka_game_of_life_tpu_torch.serve import SessionRouter
+
+    def script(device):
+        cfg = SimulationConfig(serve_max_steps=64)
+        out = []
+        with SessionRouter(cfg, device=device) as router:
+            specs = [("conway", 30, 30), ("brians-brain", 64, 40), ("highlife", 200, 256),
+                     ("star-wars", 100, 128), ("replicator", 48, 48)]
+            sids = [router.create(rule=r, height=h, width=w, seed=i)["id"]
+                    for i, (r, h, w) in enumerate(specs)]
+            for steps in (1, 7, 64):
+                out += [router.step(sid, steps=steps) for sid in sids]
+            out.append(router.step(sids[-1], steps=1_000_003))
+            out += [router.get(sid)["board"].tobytes() for sid in sids]
+        return out
+
+    assert script("cuda") == script("cpu")

@@ -59,6 +59,21 @@ def test_runtime_modules_are_covered():
     assert all(runtime / f"{name}.py" in SOURCES for name in names)
 
 
+def test_serve_native_and_host_engine_modules_are_covered():
+    """The serving plane, the native host engines and their helpers are
+    the port's own copies, checked like every other module."""
+    expected = [
+        *(PORT / "serve" / f"{n}.py" for n in ("__init__", "api", "batch", "canary", "federation",
+                                               "memo", "sessions")),
+        *(PORT / "native" / f"{n}.py" for n in ("__init__", "engine")),
+        PORT / "obs" / "slo.py", PORT / "ops" / "macroblock.py", PORT / "runtime" / "actor_engine.py",
+    ]
+    assert all(path in SOURCES for path in expected)
+    assert sorted((PORT / "native").glob("*.cpp")) == [
+        PORT / "native" / "actor_engine.cpp", PORT / "native" / "swar_kernel.cpp",
+    ]
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_imports(path):
     for mod in _imported_modules(path):

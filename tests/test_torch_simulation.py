@@ -150,12 +150,17 @@ def test_headline_config_loads_unchanged():
     [("pallas_vmem_limit_mb", 16), ("pallas_block_rows", 0), ("serve_memo", True)],
 )
 def test_unsupported_keys_raise_by_name(key, value, tmp_path):
+    def run(*args):
+        # A serve key loads (the serve role takes it); the standalone run
+        # refuses it by name.
+        tsim.Simulation(load_config(*args), device="cpu")
+
     with pytest.raises(ValueError, match=key):
-        load_config(None, {key: value})
+        run(None, {key: value})
     path = tmp_path / "c.toml"
     path.write_text(f"height = 64\n{key} = {str(value).lower()}\n")
     with pytest.raises(ValueError, match=key):
-        load_config(str(path))
+        run(str(path))
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
