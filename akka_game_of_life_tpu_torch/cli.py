@@ -250,8 +250,9 @@ def _ff_overrides(args: argparse.Namespace) -> dict:
 def _add_serve(p: argparse.ArgumentParser) -> None:
     """The serving plane's knobs (``serve/``), the JAX package's.  Every
     ``--serve-X`` flag maps 1:1 onto ``SimulationConfig.serve_X`` (dashes
-    to underscores); ``--serve-cluster on`` is refused by the config (the
-    serving cluster is a later slice of the port) and the cluster-only
+    to underscores).  ``serve --serve-cluster on`` runs the serving
+    cluster's frontend (``serve/cluster.py``); a ``frontend`` given it hosts
+    the same plane beside its simulation.  Without it the cluster-only
     knobs parse and stay inert, as in the JAX package."""
     g = p.add_argument_group(
         "serving plane",
@@ -663,6 +664,9 @@ def _frontend_parser(sub) -> argparse.ArgumentParser:
     p.add_argument("--rebalance-min-gap", type=int, default=None, metavar="N")
     p.add_argument("--rebalance-max-inflight", type=int, default=None, metavar="N")
     p.add_argument("--rebalance-deadline-s", default=None, metavar="DUR")
+    # The simulation frontend can ALSO host the serve plane (one cluster,
+    # both products): --serve-cluster on mounts /boards on its obs port.
+    _add_serve(p)
     _add_chaos_net(p)
     _add_distributed(p)
     return p
@@ -691,6 +695,7 @@ def _frontend_overrides(args: argparse.Namespace) -> dict:
         "rebalance_min_gap": args.rebalance_min_gap,
         "rebalance_max_inflight": args.rebalance_max_inflight,
         "rebalance_deadline_s": _duration(args.rebalance_deadline_s),
+        **_serve_overrides(args),
         "net_chaos": _chaos_net_overrides(args),
     }
     if args.inject_faults:
@@ -1113,15 +1118,15 @@ def _serve_parser(sub) -> None:
     p.add_argument("--config", help="TOML or JSON config file")
     p.add_argument(
         "--device", type=_run_device, default="cuda",
-        help="where the batched boards step: cuda (default), cuda:N or cpu",
+        help="where the batched boards step: cuda (default), cuda:N or cpu "
+        "(with --serve-cluster on they step on the workers' devices)",
     )
     p.add_argument(
         "--metrics-port", type=int, default=None,
         help="HTTP port for /boards + /metrics + /healthz + /trace "
         "(default 0 = ephemeral, printed at startup)",
     )
-    # The serving cluster's listener (inert while --serve-cluster is off,
-    # which is the only mode the port runs).
+    # The serving cluster's listener (inert while --serve-cluster is off).
     p.add_argument("--port", type=int, default=2551)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--min-backends", type=int, default=1)
@@ -1145,6 +1150,18 @@ def _serve(args: argparse.Namespace) -> int:
     )
     from akka_game_of_life_tpu_torch.obs import get_tracer
     from akka_game_of_life_tpu_torch.runtime.signals import flight_dump_on_signals
+
+    if cfg.serve_cluster:
+        # Cluster-sharded mode: this process is a serve-only cluster
+        # frontend; workers join with the ordinary `backend` role and each
+        # hosts session shards in its own batch engine on its device.
+        from akka_game_of_life_tpu_torch.serve.cluster import run_serve_cluster
+
+        with _sigterm_as_interrupt(), flight_dump_on_signals(get_tracer().flight):
+            try:
+                return run_serve_cluster(cfg, min_backends=args.min_backends)
+            except KeyboardInterrupt:
+                return 130
     from akka_game_of_life_tpu_torch.serve.api import run_serve
 
     with _sigterm_as_interrupt(), flight_dump_on_signals(get_tracer().flight):
@@ -1176,7 +1193,9 @@ def _backend(args: argparse.Namespace) -> int:
                 name=args.name,
                 engine=args.engine,
                 pallas=args.pallas,
-                device=args.device if args.engine == "torch" else None,
+                # The torch engine steps there, and a serve worker's plane
+                # (any engine) batches its sessions there.
+                device=args.device,
                 metrics_file=args.metrics_file,
                 metrics_port=args.metrics_port or 0,
                 log_events=args.log_events,

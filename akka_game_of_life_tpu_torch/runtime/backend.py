@@ -28,8 +28,14 @@ digest-due epochs).  A stale pull re-asks the missing rings' owners with
 PEER_PULL under decorrelated-jitter backoff and escalates with GATHER_FAILED
 after ``max_pull_retries``.
 
-Not carried over (refused by name): the ``jax`` engine (the port's device
-engine is ``torch``), and the serve plane and federation re-homing.
+With the frontend's serve plane on (WELCOME's ``serve_cluster``), the worker
+also hosts session shards and resident tiled chunks in a
+``serve/worker.py:ServeWorkerPlane`` on its device (the torch engine's, else
+the one it was given).
+
+Not carried over: the ``jax`` engine (refused by name; the port's device
+engine is ``torch``), and the control channel's re-home to a peer frontend
+(it dials the federation's fallbacks, which come with the federation).
 ``P.PROFILE`` captures a ``torch.profiler`` window on a thread of its own.
 """
 
@@ -650,6 +656,7 @@ class BackendWorker:
         "_senders": "_sender_lock",
         "_pre_stop_hooks": "_pre_stop_lock",
         "_pre_stop_done": "_pre_stop_lock",
+        "_serve_peer_addrs": "_lock",
     }
 
     def __init__(
@@ -828,6 +835,10 @@ class BackendWorker:
         self.channel: Optional[Channel] = None
         # Control frames read by _read_control, dispatched by run().
         self._inbox: "queue.SimpleQueue" = queue.SimpleQueue()
+        # Cluster-sharded serving: constructed at WELCOME when the
+        # frontend's serve plane is on; this worker then hosts session
+        # shards in its own batch engine on its device (serve/worker.py).
+        self.serve_plane = None
         self._reader: Optional[threading.Thread] = None
         self._step_chunk: Optional[Callable[[np.ndarray, int, int], np.ndarray]] = None
         self._actor_engines: Dict[TileId, object] = {}
@@ -854,6 +865,10 @@ class BackendWorker:
         # One async outbound lane per peer (bounded queue + writer thread);
         # created on first send to an owner, closed on stop/rewiring.
         self._senders: Dict[str, _PeerSender] = {}
+        # Serve-plane peer addresses (resident tiled halo exchange): the
+        # frontend names each chunk owner's peer endpoint in the step op,
+        # so serve workers can dial each other without any OWNERS wiring.
+        self._serve_peer_addrs: Dict[str, Tuple[str, int]] = {}
         self._sender_lock = threading.Lock()
         # Publish-path cache, invariant between OWNERS/DEPLOY changes:
         # per local tile its remote owners, and per remote owner the set of
@@ -940,6 +955,22 @@ class BackendWorker:
                 node=welcome.get("name") or self.name,
                 enabled=bool(_obs.get("programs", True)),
             )
+        if welcome.get("serve_cluster"):
+            from akka_game_of_life_tpu_torch.serve.worker import ServeWorkerPlane
+
+            # The serve knobs arrive in WELCOME like every other cluster
+            # policy bundle; the plane owns a local SessionRouter on this
+            # worker's device plus the op/shard wire glue.  It sends
+            # through _control_send, which reads self.channel at call time.
+            self.serve_plane = ServeWorkerPlane(
+                welcome.get("serve", {}),
+                self._control_send,
+                name=self.name or "",
+                registry=self.registry,
+                tracer=self.tracer,
+                peer_send=self.serve_peer_send,
+                device=self._serve_device(),
+            )
         self._retry_rng = random.Random(f"retry:{self.name}")
         self.breaker.node = self.name or "backend"
         if isinstance(self.channel, ChaosChannel):
@@ -1002,6 +1033,21 @@ class BackendWorker:
             raise
         return 0 if self.stopped_reason in ("shutdown", "drained") else 1
 
+    def _serve_device(self):
+        """The device the serve plane steps on: the torch engine's (the
+        first card of a meshed worker), else the one the worker was given
+        (``cuda`` unless the caller named the CPU)."""
+        dev = self.device
+        if isinstance(dev, (list, tuple)):
+            dev = dev[0]
+        return "cuda" if dev is None else dev
+
+    def _control_send(self, msg: dict) -> None:
+        """Late-bound control-channel send: reads ``self.channel`` at call
+        time, so the serve plane's bound sender follows the channel the
+        worker holds now."""
+        self.channel.send(msg)
+
     def _read_control(self) -> None:
         """The control channel's only reader: every frame goes to run()'s
         dispatch loop through ``_inbox``, and the reader goes straight back
@@ -1036,6 +1082,10 @@ class BackendWorker:
     def stop(self) -> None:
         self._stop.set()
         self._run_pre_stop_hooks()
+        if self.serve_plane is not None:
+            # Before the control channel closes: the plane's reply thread
+            # writes there, and its router must stop ticking.
+            self.serve_plane.close()
         if self.channel is not None:
             try:
                 # Graceful leave (cluster down): distinguishable from a crash.
@@ -1183,6 +1233,12 @@ class BackendWorker:
                 epoch=items[0][1],
             ):
                 self.store.push_rings(items)
+        elif kind in (P.TILED_HALO, P.TILED_HALO_ACK):
+            # Resident tiled-session halo exchange: the frame rides the
+            # serve plane's op FIFO, so a strip orders against its
+            # session's install/step/migration ops like any other op.
+            if self.serve_plane is not None:
+                self.serve_plane.handle(msg)
         elif kind == P.PEER_PULL:
             # Serve every ring we have from the asked epoch forward, for
             # EVERY tile the peer asks about (one frame asks a whole
@@ -1281,9 +1337,20 @@ class BackendWorker:
 
     def owners_by_name(self) -> Dict[str, Tuple[str, int]]:
         with self._lock:
-            return {
-                name: (host, port) for name, host, port in self.owners.values()
-            }
+            out = dict(self._serve_peer_addrs)
+            out.update(
+                (name, (host, port))
+                for name, host, port in self.owners.values()
+            )
+            return out
+
+    def serve_peer_send(self, name: str, host: str, port: int, msg: dict) -> None:
+        """Queue a serve-plane frame (TILED_HALO / ..._ACK) toward a peer
+        worker named by the frontend: the same async per-peer lane as ring
+        traffic, with the address learned from the op instead of OWNERS."""
+        with self._lock:
+            self._serve_peer_addrs[name] = (host, int(port))
+        self._send_peer(name, msg)
 
     def _sender(self, owner: str) -> Optional[_PeerSender]:
         """The async outbound lane to a peer, created on first use — or
@@ -1299,6 +1366,7 @@ class BackendWorker:
             if s is None:
                 with self._lock:
                     known = {name for name, _, _ in self.owners.values()}
+                    known |= set(self._serve_peer_addrs)
                 if known and owner not in known:
                     return None
                 s = self._senders[owner] = _PeerSender(self, owner)
@@ -1488,6 +1556,15 @@ class BackendWorker:
             self._on_migrate_prepare(msg)
         elif kind == P.MIGRATE_ABORT:
             self._on_migrate_abort(tuple(msg["tile"]))
+        elif kind in (
+            P.SERVE_OPS, P.SHARD_PREPARE, P.SHARD_COMMIT, P.SHARD_ABORT,
+            P.SHARD_REPLICATE_ACK,
+        ):
+            # Serve-plane frames enqueue to the plane's executor and never
+            # block this dispatch: a step op's batch tick must not stall
+            # heartbeat-adjacent control traffic.
+            if self.serve_plane is not None:
+                self.serve_plane.handle(msg)
         elif kind == P.PROFILE:
             # The frontend's fan-out: capture on a daemon thread, so a
             # multi-second window never blocks this control reader.
@@ -1515,6 +1592,8 @@ class BackendWorker:
             self.stopped_reason = "drained" if drained else "drain_refused"
             self._stop.set()
             self._run_pre_stop_hooks()
+            if self.serve_plane is not None:
+                self.serve_plane.close()
             try:
                 # Deliberate leave, distinguishable from a crash — by now we
                 # own nothing, so the frontend evicts without redeploying.
@@ -1527,6 +1606,8 @@ class BackendWorker:
             self._stop.set()
             # Last words while the socket is still open (span-batch drain).
             self._run_pre_stop_hooks()
+            if self.serve_plane is not None:
+                self.serve_plane.close()
             self.channel.close()
 
     def _on_owners(self, msg: dict) -> None:
@@ -1788,8 +1869,11 @@ class BackendWorker:
         finally DRAIN_COMPLETE."""
         with self._lock:
             has_tiles = bool(self.tiles)
+        # A serve-shard host with no tiles still drains: its sessions must
+        # migrate off before it may leave without losing tenant boards.
+        serving = self.serve_plane is not None
         if (
-            not has_tiles
+            (not has_tiles and not serving)
             or self.channel is None
             or self._stop.is_set()
         ):
@@ -1895,7 +1979,9 @@ class BackendWorker:
         is checked FIRST (O(perimeter)) so active tiles — whose boundary
         almost surely moved — never pay the O(tile) state compare.  Caller
         holds the lock."""
-        if not self.sparse_cluster:
+        if not self.sparse_cluster or self.engine in ("actor", "actor-native"):
+            # Actor engines are stateful (per-cell histories advance with
+            # every step); skipping their drive would desynchronize them.
             return 0
         ins = tile.inputs
         p1 = (

@@ -19,10 +19,10 @@ stencil kernels, kept so config files load unchanged) or the per-cell
 actor engines ``"actor"`` / ``"actor-native"`` (host engines).  The
 single-process serving plane (``role = "serve"``) takes every ``serve_*``
 key with the JAX package's defaults and checks; ``serve_cluster = true``
-is refused by name (the serving cluster is a later slice of the port),
-while the cluster-only keys (``serve_shards``, ``serve_tile_chunk``,
-``serve_tiled_resident*``, ``serve_replicate*``) parse, validate and stay
-inert, as in the JAX package.  ``load_config`` reads the same TOML or JSON
+runs the serving cluster (``serve/cluster.py``), and its keys
+(``serve_shards``, ``serve_tile_chunk``, ``serve_tiled_resident*``,
+``serve_replicate*``) parse and validate as in the JAX package, inert while
+it is off.  ``load_config`` reads the same TOML or JSON
 files (``examples/headline-65536.toml`` loads unchanged) and accepts the
 same duration spellings ("5s", "3000ms").  A key the port does not
 support — a federation ``frontend_*`` knob, or any other — raises a
@@ -324,7 +324,7 @@ class SimulationConfig:
     serve_ttl_s: float = 300.0
     # Padded size classes (square sides, strictly ascending).
     serve_size_classes: str = "32,64,128,256"
-    # The serving cluster: refused when on (a later slice of the port).
+    # The serving cluster: sessions sharded over backend workers.
     serve_cluster: bool = False
     # Cluster-only knobs: parsed and validated, inert while serve_cluster
     # is off (as in the JAX package).
@@ -515,13 +515,6 @@ class SimulationConfig:
 
     def _check_serve(self) -> None:
         """The serving plane's checks, the JAX package's, in its order."""
-        if self.serve_cluster:
-            raise ValueError(
-                "serve_cluster=True (the serving cluster: sessions sharded "
-                "over backend workers) is not supported by the PyTorch port "
-                "yet: the serving cluster is a later slice of the port; the "
-                "single-process serving plane runs with serve_cluster off"
-            )
         for name in (
             "serve_max_sessions",
             "serve_max_cells",
@@ -752,7 +745,7 @@ def load_config(
         raise ValueError(
             f"config keys {federation} configure the frontend federation, "
             f"which the PyTorch port does not support yet (a later slice "
-            f"of the port, with the serving cluster)"
+            f"of the port, on top of the serving cluster)"
         )
     if unsupported:
         raise ValueError(

@@ -13,14 +13,19 @@ forward by pulling epoch-tagged rings; and injects tile or node crashes on
 a wall-clock or epoch-indexed schedule.  Live tile migration and graceful
 drain (the elastic plane) are carried over.
 
-Not carried over: the serve plane, frontend federation and the SLO tracker
-(their config keys are refused).  ``POST /profile`` captures a
-``torch.profiler`` window (``runtime/profiling.py``) and fans it out to the
-workers.
+With ``serve_cluster`` on, the frontend is also the tenant-facing session
+router (``serve/cluster.py:ClusterServePlane``): sessions hash-shard across
+the same workers, ``/boards`` and the SLO tracker mount on the obs endpoint,
+and a serve-only cluster (no ``max_epochs``) is membership plus the plane.
+
+Not carried over: frontend federation (its ``frontend_*`` keys are
+refused).  ``POST /profile`` captures a ``torch.profiler`` window
+(``runtime/profiling.py``) and fans it out to the workers.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import socket
 import threading
@@ -97,6 +102,9 @@ _MSG_REQUIRED = {
     P.GATHER_FAILED: ("tile", "epoch"),
     P.MIGRATE_STATE: ("tile", "epoch", "state", "digest", "seq"),
     P.DRAIN_REQUEST: (),
+    P.SERVE_RESULT: ("results",),
+    P.SHARD_STATE: ("shard", "seq"),
+    P.SHARD_HOME: ("sessions",),
 }
 # TILE_STATE carries per-reason payloads; each declared reason needs its key.
 _REASON_PAYLOAD = {
@@ -133,6 +141,12 @@ def _validate_msg(msg) -> None:
         raise MalformedMessage(f"{kind} seq {msg.get('seq')!r} is not an int")
     if "state" in required and not isinstance(msg["state"], dict):
         raise MalformedMessage(f"{kind} state is not a tile payload dict")
+    if "shard" in required and not isinstance(msg["shard"], int):
+        raise MalformedMessage(
+            f"{kind} shard {msg.get('shard')!r} is not an int"
+        )
+    if "results" in required and not isinstance(msg["results"], list):
+        raise MalformedMessage(f"{kind} results is not a list")
     if kind == P.PROGRESS:
         for field in ("q", "skipped"):
             if field in msg and not isinstance(msg[field], int):
@@ -279,8 +293,12 @@ class Frontend:
         registry=None,
         tracer=None,
     ) -> None:
-        if config.max_epochs is None:
+        if config.max_epochs is None and not config.serve_cluster:
+            # A serve-only cluster (serve_cluster with no simulation) has
+            # no epoch target: the frontend is membership + serve plane.
             raise ValueError("frontend requires max_epochs")
+        if config.max_epochs is None:
+            config = dataclasses.replace(config, max_epochs=0)
         self.config = config
         self.rule = resolve_rule(config.rule)
         # Coordinator observability: membership churn and recovery actions
@@ -368,6 +386,7 @@ class Frontend:
         )
         self._m_drains = self.metrics.counter("gol_drains_total")
         self._metrics_server: Optional[MetricsServer] = None
+        self._serve_slo = None  # SloTracker when serve_cluster is on
         # Wire-fault policy (config/CLI --chaos-net-*): one seeded instance
         # per process; the in-process harness hands this same instance to
         # its workers so partition sides are consistent cluster-wide.
@@ -414,6 +433,23 @@ class Frontend:
         # under self._lock.
         self.rebalancer = Rebalancer(config)
         self._drain_spans: Dict[str, object] = {}
+        # Cluster-sharded serving (docs/OPERATIONS.md "Serving plane"):
+        # when serve_cluster is on, this frontend is ALSO the tenant-facing
+        # session router — sessions hash-shard across the same workers that
+        # host tiles, /boards mounts on the obs endpoint, and the plane's
+        # own Rebalancer instance migrates session shards (load + drain).
+        self.serve_plane = None
+        if config.serve_cluster:
+            from akka_game_of_life_tpu_torch.serve.cluster import ClusterServePlane
+
+            self.serve_plane = ClusterServePlane(
+                config,
+                self.membership,
+                self._safe_send,
+                registry=self.metrics,
+                tracer=self.tracer,
+                events=self.events,
+            )
         if config.checkpoint_dir and config.checkpoint_format != "npz":
             # The frontend streams per-tile saves (save_tile /
             # finalize_epoch), which only the npz store implements; orbax is
@@ -511,7 +547,7 @@ class Frontend:
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> None:
-        if self.config.metrics_port:
+        if self.config.metrics_port or self.serve_plane is not None:
             # Observatory surface: cluster-merged /programs + /cost, and
             # POST /profile.
             routes = dict(
@@ -519,6 +555,25 @@ class Frontend:
                     registry=self.programs, profile=self._cluster_profile
                 )
             )
+            if self.serve_plane is not None:
+                from akka_game_of_life_tpu_torch.obs import slo as slo_mod
+                from akka_game_of_life_tpu_torch.serve.api import board_routes
+
+                # The tenant surface rides the obs endpoint, exactly like
+                # the single-process serve role (ephemeral port when no
+                # metrics_port was configured — printed by the role body).
+                # The SLO tracker gets the frontend's event log so burn
+                # alerts land in the same stream as promotions.
+                self._serve_slo = slo_mod.SloTracker(
+                    self.config, registry=self.metrics, tracer=self.tracer,
+                    events=self.events, node="frontend",
+                )
+                routes.update(
+                    board_routes(
+                        self.serve_plane, tracer=self.tracer,
+                        slo=self._serve_slo,
+                    )
+                )
             self._metrics_server = MetricsServer(
                 self.metrics,
                 port=self.config.metrics_port,
@@ -560,6 +615,10 @@ class Frontend:
         # Cost observatory digest (registry takes its own lock): program
         # counts, compile bill, storms, per-member warmth.
         doc["programs"] = self.programs.health_summary()
+        if self.serve_plane is not None:
+            # Outside the frontend lock (frontend → plane is the one
+            # permitted nesting order, and health() takes the plane lock).
+            doc["serve"] = self.serve_plane.health()
         return doc
 
     def _cluster_profile(self, seconds: Optional[float]) -> dict:
@@ -917,6 +976,11 @@ class Frontend:
 
     def stop(self) -> None:
         self._stop.set()
+        if self.serve_plane is not None:
+            # Before SHUTDOWN frames: pending tenant ops fail fast with
+            # "router is closed" instead of timing out against workers
+            # that are about to leave.
+            self.serve_plane.close()
         members = self.membership.alive_members()
         for m in members:
             self._safe_send(m, {"type": P.SHUTDOWN})
@@ -987,6 +1051,9 @@ class Frontend:
         if self._metrics_server is not None:
             self._metrics_server.close()
             self._metrics_server = None
+        if self._serve_slo is not None:
+            self._serve_slo.close()
+            self._serve_slo = None
         with self._lock:
             err = self.error
         self.events.emit(
@@ -1072,6 +1139,17 @@ class Frontend:
             if isinstance(channel, ChaosChannel):
                 channel.dst = member.name
                 self.netchaos.register_node(member.name)
+            welcome_serve = {}
+            if self.serve_plane is not None:
+                from akka_game_of_life_tpu_torch.serve.worker import serve_policy
+
+                # The serve knobs are frontend-owned cluster policy, like
+                # the ring/retry bundles: every worker builds its local
+                # SessionRouter from the SAME source of truth.
+                welcome_serve = {
+                    "serve_cluster": True,
+                    "serve": serve_policy(self.config),
+                }
             self._safe_send(
                 member,
                 {
@@ -1111,6 +1189,7 @@ class Frontend:
                         "max_s": self.config.obs_profile_max_s,
                         "min_interval_s": self.config.obs_profile_min_interval_s,
                     },
+                    **welcome_serve,
                 },
             )
             engine = hello.get("engine", "?")
@@ -1125,6 +1204,11 @@ class Frontend:
             self.events.emit(
                 "member_joined", member=member.name, engine=str(engine)
             )
+            if self.serve_plane is not None:
+                # The plane claims unowned shards for a first worker; a
+                # late joiner receives its shards through the rebalancer
+                # (empty shards flip instantly on the next poll).
+                self.serve_plane.on_member_joined(member.name)
             with self._lock:
                 late = self._started.is_set() and self.layout is not None
                 if late:
@@ -1255,6 +1339,21 @@ class Frontend:
             self._on_gather_failed(member, tuple(msg["tile"]), int(msg["epoch"]))
         elif kind == P.MIGRATE_STATE:
             self._on_migrate_state(member, msg)
+        elif kind == P.SERVE_RESULT:
+            if self.serve_plane is not None:
+                self.serve_plane.on_result(member.name, msg)
+        elif kind == P.SHARD_STATE:
+            if self.serve_plane is not None:
+                self.serve_plane.on_shard_state(member.name, msg)
+        elif kind == P.SHARD_REPLICATE:
+            if self.serve_plane is not None:
+                self.serve_plane.on_shard_replicate(member.name, msg)
+        elif kind == P.SHARD_HOME:
+            # A worker re-homed its control channel here after its previous
+            # frontend died: its session list is the truth that closes the
+            # failover window.
+            if self.serve_plane is not None:
+                self.serve_plane.on_shard_home(member.name, msg)
         elif kind == P.DRAIN_REQUEST:
             self._on_drain_request(member)
         elif kind == P.GOODBYE:
@@ -1680,7 +1779,10 @@ class Frontend:
                 for m in self.membership.placeable_members()
                 if m.name != member.name
             ]
-            if not self._started.is_set() or not others:
+            # A serve-only cluster (serve plane, no simulation) honors
+            # drains from the moment it serves — _started never fires.
+            active = self._started.is_set() or self.serve_plane is not None
+            if not active or not others:
                 refused = True
             else:
                 refused = False
@@ -1731,6 +1833,13 @@ class Frontend:
                     for mig in self.rebalancer.inflight.values()
                 )
                 if m.tiles or busy:
+                    continue
+                if self.serve_plane is not None and (
+                    not self.serve_plane.member_clear(m.name)
+                ):
+                    # Still owns session shards (or a shard move touches
+                    # it): the serve analog of "owns tiles" — release only
+                    # once its sessions have migrated off.
                     continue
                 m.drain_acked = True
                 self._m_drains.inc()
@@ -1788,6 +1897,11 @@ class Frontend:
                 self._abort_migration(
                     mig, "member_lost", notify_source=(mig.source != name)
                 )
+            if self.serve_plane is not None:
+                # Serve-plane bookkeeping: in-flight ops answered, shard
+                # ownership reassigned, gauges reclaimed (never under the
+                # frontend lock — plane methods take their own).
+                self.serve_plane.on_member_lost(name)
         if not self._started.is_set():
             return
         if self._stop.is_set() or self.done.is_set():
@@ -1979,6 +2093,12 @@ class Frontend:
             # able to leave gracefully mid-pause) but never reshapes for
             # load.
             self._rebalance_poll(now, drain_only=drain_only)
+            # The serve plane's elastic pass (session shards) runs even
+            # before/without start_simulation — a serve-only cluster
+            # rebalances from its first worker.
+            if self.serve_plane is not None and not degraded:
+                self.serve_plane.poll(now, drain_only=drain_only)
+                self._check_drains()
             # paced epoch announcements
             with self._lock:
                 if (

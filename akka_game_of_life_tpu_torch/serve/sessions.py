@@ -250,6 +250,9 @@ class SessionRouter:
         from akka_game_of_life_tpu_torch.runtime.simulation import resolve_device
 
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # The constructing thread's card, by index: the tick thread pins it.
+            self.device = torch.device("cuda", torch.cuda.current_device())
         if config is None:
             from akka_game_of_life_tpu_torch.runtime.config import SimulationConfig
 
@@ -846,6 +849,10 @@ class SessionRouter:
     # -- the tick loop -------------------------------------------------------
 
     def _tick_loop(self) -> None:
+        if self.device.type == "cuda":
+            # This thread's current card is the router's own (a cluster
+            # worker may run beside others on another card).
+            torch.cuda.set_device(self.device)
         while True:
             with self._lock:
                 while not self._stopped and (

@@ -63,6 +63,16 @@ through its CLI:
   on the card; the memo router on 64 tenants of one gun board against the
   memo-off router; ``serve --serve-canary on`` with no failed probe; then
   SIGTERM drains each process (exit 130);
+- the serving cluster: ``serve --serve-cluster on`` at the same defaults
+  (64 shards, resident tiled sessions, replication) with three ``backend
+  --device cuda`` processes on card 0: the same 1024 sessions stepped 64
+  epochs (every digest equal to the single-process plane's), a 4096²
+  mega-board in 256 resident chunks stepped 64 epochs in barrier rounds of
+  8 (its digest against the packed sweep's, its bytes per round no more
+  than the chunks' halo strips), a worker SIGKILLed in round 2 (no 404,
+  every op answered, promoted boards and the mega-board certified at their
+  resume epochs) and another SIGTERM-drained in round 3 (exit 0, no
+  admitted job lost, resident chunks re-homed digest-certified);
 - the host engines: ``run --backend actor-native`` at 256² against the
   packed run's digests, and in-process clusters of ``swar`` workers at
   4096² and ``actor-native`` workers at 512² against the torch engine's;
@@ -2070,7 +2080,7 @@ def serve_phase(tmp: Path, card):
     """The ``serve`` role on the card at the JAX package's defaults: 1024
     sessions (16,384,000 cells at most) created and stepped through
     ``/boards`` by concurrent clients, every board's digest held against a
-    CPU reference."""
+    CPU reference.  Returns round 1's digests, in ``serve_specs()`` order."""
     import numpy as np
 
     from akka_game_of_life_tpu_torch import bench
@@ -2159,6 +2169,7 @@ def serve_phase(tmp: Path, card):
         round2_boards=len(small), round2_s=round2_s, round2_client_p99_s=lat2[int(len(lat2) * 0.99)],
         ff_boards=len(reps), ff_s=ff_s, cpu_reference_s=ref_s, card=card["name_power"],
     )
+    return [doc["digest"] for _, doc in stepped]
 
 
 def _gun_board():
@@ -2228,6 +2239,472 @@ def canary_phase(tmp: Path, card):
     check(failures is None or float(failures.group(1)) == 0, f"canary failures: {failures.group(1)}")
     check(set(probes) == {"ok"}, f"canary outcomes {probes}")
     emit("serve_canary", probes=probes, seconds=CANARY_WAIT_S, card=card["name_power"])
+
+
+# -- the serving cluster ---------------------------------------------------------
+#
+# ``serve --serve-cluster on`` at the JAX package's serve defaults (64
+# shards, tile chunk 8, resident tiled sessions and replication on) with
+# SC_WORKERS ``backend --device cuda`` workers on card 0: the serve mix of
+# the single-process phase, then the runbook's 4096² mega-board
+# (docs/OPERATIONS.md, ``bench_serve.py --mega-side 4096``), a SIGKILL in
+# round 2 and a SIGTERM drain in round 3.  The session cap and the cell
+# budget are the defaults' plus room for the mega-board (1024 + 8 sessions,
+# 2^24 + 4096² cells), as bench_serve.py raises them for its drills, and
+# the planner polls every 50 ms as bench_serve.py's does; the failure
+# timeout is the JAX tests' 5 s.
+SC_WORKERS = 3
+SC_DEVICE = "cuda"  # each worker's --device
+SC_MEGA_SIDE = 4096
+SC_MEGA_SEED = 4096
+SC_ROUND_EPOCHS = 64  # each traffic round steps every board this far
+SC_CHUNK = 8  # serve_tile_chunk: one mega-board request = one barrier round
+SC_TOML = """\
+failure_timeout_s = "5s"
+wait_for_backends_s = "240s"
+rebalance_interval_s = "50ms"
+serve_max_sessions = 1032
+serve_max_cells = 33554432
+"""
+
+
+def _prom_family(text: str, name: str) -> float:
+    """Sum of every series of ``name`` in a Prometheus exposition (0 when
+    absent)."""
+    return sum(float(m.group(1)) for m in re.finditer(
+        rf"^{name}(?:{{[^}}]*}})? (\S+)$", text, re.M))
+
+
+def _prom_label(text: str, name: str, label: str, value: str) -> float:
+    m = re.search(rf'^{name}{{[^}}]*{label}="{re.escape(value)}"[^}}]*}} (\S+)$', text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def _sessions_reference(specs, steps):
+    """Every serve-mix board's digest after ``steps`` epochs, by the batched
+    step on the card from the seeds (checked against the CPU's at 64 epochs
+    in the serve phase)."""
+    from akka_game_of_life_tpu_torch.ops import digest as odigest
+    from akka_game_of_life_tpu_torch.serve import batch as sbatch
+
+    out = [None] * len(specs)
+    for side, (idx, ops) in _class_batches(specs, steps, pad=True).items():
+        _, lanes = sbatch.batch_step_fn(side, steps, SINGLE)(*ops)
+        lanes = lanes.cpu().numpy()
+        for j, i in enumerate(idx):
+            out[i] = odigest.format_digest(odigest.value(lanes[j]))
+    return out
+
+
+class _MegaReference:
+    """The mega-board's digest at any epoch: its start board, packed on the
+    card and advanced by the packed sweep (the cluster phase's reference)."""
+
+    def __init__(self, side, seed):
+        import torch
+
+        from akka_game_of_life_tpu_torch.ops import bitpack
+        from akka_game_of_life_tpu_torch.utils.patterns import random_grid
+
+        self.side = side
+        self.words0 = bitpack.pack(torch.from_numpy(random_grid((side, side), density=0.5,
+                                                                seed=seed)).to(SINGLE))
+        self.cache = {}
+
+    def __call__(self, epoch: int) -> str:
+        from akka_game_of_life_tpu_torch.ops import digest as odigest
+        from akka_game_of_life_tpu_torch.ops import packed_sweep
+
+        if epoch not in self.cache:
+            words = self.words0
+            if epoch:
+                words = packed_sweep.packed_multi_step_fn("conway", epoch)(self.words0)
+            lanes = odigest.digest_packed(words, self.side).cpu().numpy()
+            self.cache[epoch] = odigest.format_digest(odigest.value(lanes))
+        return self.cache[epoch]
+
+
+class _Traffic:
+    """One traffic round's client ledger: answers by status, the 404s on
+    admitted sessions, the resume points read in a failover window and the
+    client-observed promotion latency (first 429 ``failover`` to the next
+    200) per session."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.answered = 0
+        self.status = {}
+        self.not_found = []
+        self.resumed = {}  # key -> [(epoch, digest)] read in a failover window
+        self.latency = []
+        self.failures = []
+
+    def note(self, status):
+        with self.lock:
+            self.answered += 1
+            self.status[status] = self.status.get(status, 0) + 1
+
+
+def _step_through_failover(base, key, sid, start, target, chunk, traffic, mega=False):
+    """Step ``sid`` from ``start`` to the absolute epoch ``target`` in steps
+    of at most ``chunk``, the tiled client contract: a 429 ``failover``
+    means the board resumed at a certified epoch, read it back and step on
+    from there.  Every call has a timeout, so a hang fails the phase."""
+    epoch, t_fail = start, None
+    while epoch < target:
+        status, doc = _http(base, "POST", f"/boards/{sid}/step",
+                            {"steps": min(chunk, target - epoch)})
+        traffic.note(status)
+        if status == 200:
+            epoch = int(doc["epoch"])
+            if t_fail is not None:
+                with traffic.lock:
+                    traffic.latency.append(time.monotonic() - t_fail)
+                t_fail = None
+            continue
+        if status == 404:
+            with traffic.lock:
+                traffic.not_found.append(sid)
+            return
+        if status != 429:
+            with traffic.lock:
+                traffic.failures.append((sid, status, doc))
+            return
+        if doc.get("reason") != "failover":
+            time.sleep(0.05)  # a full queue: back off and retry
+            continue
+        t_fail = t_fail if t_fail is not None else time.monotonic()
+        while True:  # the resume point, once the promotion has landed
+            time.sleep(float(doc.get("retry_after_s", 0.1)))
+            if mega:
+                status, listed = _http(base, "GET", "/boards")
+                row = next((r for r in listed.get("boards", []) if r["id"] == sid), None)
+                if status == 200 and row is not None:
+                    status, got = 200, row
+                else:
+                    status, got = 404, {}
+            else:
+                status, got = _http(base, "GET", f"/boards/{sid}")
+            traffic.note(status)
+            if status == 200:
+                break
+            if status == 404:
+                with traffic.lock:
+                    traffic.not_found.append(sid)
+                return
+            if status != 429:
+                with traffic.lock:
+                    traffic.failures.append((sid, status, got))
+                return
+            doc = got
+        epoch = int(got["epoch"])
+        with traffic.lock:
+            traffic.resumed.setdefault(key, []).append((epoch, got["digest"]))
+
+
+def _start_proc(argv, name, tmp):
+    env = {**os.environ, "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "PYTHONFAULTHANDLER": "1"}
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env=env, cwd=tmp)
+    lines: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=_reader, args=(proc, OUT / f"{name}.log", lines), daemon=True).start()
+    return proc, lines
+
+
+def _traffic_round(base, pool, sids, starts, target, mega, mega_start, action, trigger):
+    """One round: every session from its start to ``target`` and the mega
+    board in SC_CHUNK requests, from the pool; ``action`` fires once
+    ``trigger`` of the session steps have been answered.  Returns the
+    ledger and the round's wall seconds."""
+    traffic = _Traffic()
+    fired = threading.Event()
+
+    def watch():
+        while not fired.is_set():
+            with traffic.lock:
+                due = traffic.answered >= trigger
+            if due:
+                action()
+                fired.set()
+            time.sleep(0.01)
+
+    t0 = time.perf_counter()
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    # The mega-board first, so its rounds run while the sessions' do.
+    futs = [pool.submit(_step_through_failover, base, "mega", mega, mega_start,
+                        mega_start + SC_ROUND_EPOCHS, SC_CHUNK, traffic, True)]
+    futs += [pool.submit(_step_through_failover, base, i, sid, starts[i], target,
+                         target, traffic) for i, sid in enumerate(sids)]
+    for f in futs:
+        f.result()
+    wall = time.perf_counter() - t0
+    check(fired.is_set(), f"the round ended before its action fired ({traffic.answered} answers)")
+    watcher.join(timeout=5)
+    return traffic, wall
+
+
+def _catch_up(base, pool, sids, mega, target, traffic):
+    """After a round's promotions settle: a board the index rolled back to
+    its certified epoch (its last step ran on the lost worker past what was
+    replicated) has resumed there; record that resume point and step it on
+    to ``target``.  Returns the listing at the end."""
+    listed = {r["id"]: r for r in _http(base, "GET", "/boards")[1]["boards"]}
+    behind = [(i, sid) for i, sid in enumerate(sids) if listed[sid]["epoch"] < target]
+    behind += [("mega", mega)] if listed[mega]["epoch"] < target else []
+    for key, sid in behind:
+        with traffic.lock:
+            traffic.resumed.setdefault(key, []).append(
+                (listed[sid]["epoch"], listed[sid]["digest"]))
+    list(pool.map(lambda ks: _step_through_failover(
+        base, ks[0], ks[1], listed[ks[1]]["epoch"], target,
+        SC_CHUNK if ks[0] == "mega" else target, traffic, ks[0] == "mega"), behind))
+    return {r["id"]: r for r in _http(base, "GET", "/boards")[1]["boards"]}
+
+
+def _worker_metrics(ports):
+    return {name: _http(f"http://127.0.0.1:{port}", "GET", "/metrics")[1]
+            for name, port in ports.items()}
+
+
+def serve_cluster_phase(tmp: Path, card, single):
+    """The serving cluster on the card: a ``serve --serve-cluster on``
+    frontend process and SC_WORKERS ``backend --device cuda`` processes.
+    Round 1 steps the serve mix (the single-process phase's digests must
+    come back); the 4096² mega-board takes 64 epochs in 8 barrier rounds
+    (its digest against the packed sweep's, its bytes per round
+    O(perimeter)); round 2 SIGKILLs a worker (zero 404s, every op answered,
+    promoted sessions certified at their resume epochs, the mega-board
+    resumed at its certified epoch); round 3 SIGTERM-drains another (rc 0,
+    no admitted job lost, resident chunks re-homed digest-certified)."""
+    specs = serve_specs()
+    cells = sum(h * w for _, h, w, _, _ in specs)
+    check(len(single) == len(specs), "the serve phase's digests")
+    toml = tmp / "serve-cluster.toml"
+    toml.write_text(SC_TOML)
+    procs = {}
+    try:
+        t_boot = time.perf_counter()
+        fe, fe_lines = _start_proc(_port_cli(
+            "serve", "--serve-cluster", "on", "--config", str(toml), "--port", "0",
+            "--metrics-port", "0", "--min-backends", str(SC_WORKERS)), "serve_cluster", tmp)
+        procs["frontend"] = fe
+        deadline = time.monotonic() + WAIT_S
+        port = _await_line(fe_lines, r"listening on \S+:(\d+)", deadline, "the cluster port").group(1)
+        names = [f"sw{i}" for i in range(SC_WORKERS)]
+        ports = {name: _free_port() for name in names}  # each worker's /metrics
+        worker_lines = {}
+        for name in names:
+            procs[name], worker_lines[name] = _start_proc(_port_cli(
+                "backend", "--port", port, "--name", name, "--device", SC_DEVICE,
+                "--metrics-port", str(ports[name])), f"serve_cluster_{name}", tmp)
+        for name, lines in worker_lines.items():
+            _await_line(lines, r"metrics on :(\d+)", deadline, f"{name} metrics")
+        http_port = _await_line(fe_lines, r"on :(\d+) ", deadline, "the /boards port").group(1)
+        base = f"http://127.0.0.1:{http_port}"
+        boot_s = time.perf_counter() - t_boot
+        health = _http(base, "GET", "/healthz")[1]["serve"]
+        check(health["shards_total"] == 64 and health["tiled_resident"]["enabled"]
+              and health["replication"]["enabled"], f"not the JAX defaults: {health}")
+        while True:  # the late joiners' shards flip before any session lands
+            by = _http(base, "GET", "/healthz")[1]["serve"]["shards_by_worker"]
+            if len(by) == SC_WORKERS and max(by.values()) - min(by.values()) <= 2:
+                break
+            check(time.monotonic() < deadline, f"the shards never spread: {by}")
+            time.sleep(0.05)
+
+        with concurrent.futures.ThreadPoolExecutor(SERVE_THREADS) as pool:
+            # -- round 1: the serve mix, against the single-process plane ---------
+            created, create_s, _ = _timed(pool, lambda s: _http(base, "POST", "/boards", {
+                "tenant": f"t{s[3] % 16}", "rule": s[0], "height": s[1], "width": s[2],
+                "seed": s[3]}), specs)
+            for status, doc in created:
+                check(status == 201, f"cluster create: {status} {doc}")
+            sids = [doc["id"] for _, doc in created]
+            w_before = _worker_metrics(ports)
+            stepped, round1_s, lat1 = _timed(pool, lambda sid: _http(
+                base, "POST", f"/boards/{sid}/step", {"steps": SC_ROUND_EPOCHS}), sids)
+            _steps_ok(stepped, SC_ROUND_EPOCHS, "cluster round 1")
+            w_after = _worker_metrics(ports)
+            for i, (_, doc) in enumerate(stepped):
+                check(doc["digest"] == single[i], f"cluster round 1 board {i} {specs[i][:3]}: "
+                      f"{doc['digest']} != the single-process plane's {single[i]}")
+            per_worker = {name: {
+                "tick_s": _prom_family(w_after[name], "gol_serve_tick_seconds_sum")
+                - _prom_family(w_before[name], "gol_serve_tick_seconds_sum"),
+                "ticks": _prom_family(w_after[name], "gol_serve_tick_seconds_count")
+                - _prom_family(w_before[name], "gol_serve_tick_seconds_count"),
+                "batched_call_s": _prom_label(w_after[name], "gol_program_device_seconds_total",
+                                              "family", "serve_batch")
+                - _prom_label(w_before[name], "gol_program_device_seconds_total",
+                              "family", "serve_batch"),
+            } for name in names}
+            sessions_by_worker = _http(base, "GET", "/healthz")[1]["serve"]["sessions_by_worker"]
+            check(len(sessions_by_worker) == SC_WORKERS, f"sessions on {sessions_by_worker}")
+
+            # -- the mega-board: 256 resident chunks, 8 rounds of 8 ---------------
+            ref = _MegaReference(SC_MEGA_SIDE, SC_MEGA_SEED)
+            t0 = time.perf_counter()
+            status, mega = _http(base, "POST", "/boards", {
+                "rule": "conway", "height": SC_MEGA_SIDE, "width": SC_MEGA_SIDE,
+                "seed": SC_MEGA_SEED})
+            mega_create_s = time.perf_counter() - t0
+            check(status == 201 and mega.get("kind") == "tiled" and mega.get("resident")
+                  and mega.get("tiles") == (SC_MEGA_SIDE // 256) ** 2, f"mega create: {status} {mega}")
+            check(mega["digest"] == ref(0), "the mega-board's start digest")
+            chunks = _http(base, "GET", "/healthz")[1]["serve"]["tiled_resident"]["chunks_by_worker"]
+            check(sorted(chunks) == names, f"mega chunks on {chunks}")
+            m_before = _http(base, "GET", "/metrics")[1]
+            round_s = []
+            for r in range(SC_ROUND_EPOCHS // SC_CHUNK):
+                t0 = time.perf_counter()
+                status, doc = _http(base, "POST", f"/boards/{mega['id']}/step", {"steps": SC_CHUNK})
+                round_s.append(time.perf_counter() - t0)
+                check(status == 200 and doc["epoch"] == (r + 1) * SC_CHUNK, f"mega round {r}: {doc}")
+            check(doc["digest"] == ref(SC_ROUND_EPOCHS),
+                  f"mega-board at {SC_ROUND_EPOCHS}: {doc['digest']} != {ref(SC_ROUND_EPOCHS)}")
+            m_after = _http(base, "GET", "/metrics")[1]
+            n_rounds = _prom_family(m_after, "gol_serve_tiled_bytes_round_count") - _prom_family(
+                m_before, "gol_serve_tiled_bytes_round_count")
+            round_bytes = (_prom_family(m_after, "gol_serve_tiled_bytes_round_sum") - _prom_family(
+                m_before, "gol_serve_tiled_bytes_round_sum")) / max(n_rounds, 1)
+            # Every chunk's eight strips, k = 8 cells deep, one bit a cell.
+            side, k = 256, SC_CHUNK
+            perimeter_bytes = (SC_MEGA_SIDE // side) ** 2 * (4 * side * k + 4 * k * k) / 8
+            area_bytes = SC_MEGA_SIDE * SC_MEGA_SIDE / 8
+            check(n_rounds == SC_ROUND_EPOCHS // SC_CHUNK, f"{n_rounds} tiled rounds observed")
+            check(0 < round_bytes <= perimeter_bytes * 1.01,
+                  f"{round_bytes} B a round, over the perimeter's {perimeter_bytes}")
+            tiled_w = _worker_metrics(ports)
+
+            # -- round 2: SIGKILL a worker mid-round ------------------------------
+            ref128 = _sessions_reference(specs, 2 * SC_ROUND_EPOCHS)
+            victim = names[0]
+            kill_t = {}
+
+            def kill():
+                kill_t["t"] = time.monotonic()
+                procs[victim].kill()
+
+            r2, round2_s = _traffic_round(
+                base, pool, sids, [SC_ROUND_EPOCHS] * len(sids), 2 * SC_ROUND_EPOCHS,
+                mega["id"], SC_ROUND_EPOCHS, kill, len(sids) // 3)
+            procs[victim].wait(timeout=30)
+
+            def settled(alive):
+                doc = _http(base, "GET", "/healthz")[1]
+                s = doc["serve"]
+                return (doc["members_alive"] == alive
+                        and s["replication"]["promotions_inflight"] == 0
+                        and s["tiled_resident"]["promotions_inflight"] == 0)
+
+            deadline = time.monotonic() + WAIT_S
+            while not settled(SC_WORKERS - 1):
+                check(time.monotonic() < deadline, "the promotions never settled")
+                time.sleep(0.1)
+            listed = _catch_up(base, pool, sids, mega["id"], 2 * SC_ROUND_EPOCHS, r2)
+            check(not r2.not_found, f"404 on admitted sessions: {r2.not_found[:5]}")
+            check(not r2.failures, f"round 2 failures: {r2.failures[:3]}")
+            promoted = {k: v for k, v in r2.resumed.items() if k != "mega"}
+            check(promoted, "no session resumed through a failover window")
+            for i, seen in promoted.items():
+                for epoch, digest in seen:
+                    want = {SC_ROUND_EPOCHS: single[i], 2 * SC_ROUND_EPOCHS: ref128[i]}.get(epoch)
+                    check(digest == want, f"promoted board {i} at {epoch}: {digest} != {want}")
+            mega_resumes = r2.resumed.get("mega", [])
+            check(mega_resumes, "the mega-board never resumed through the kill")
+            for epoch, digest in mega_resumes:
+                check(digest == ref(epoch), f"mega-board resumed at {epoch}: {digest} != {ref(epoch)}")
+            check(len(listed) == len(sids) + 1, f"{len(listed)} sessions listed after the kill")
+            for i, sid in enumerate(sids):
+                check(listed[sid]["epoch"] == 2 * SC_ROUND_EPOCHS
+                      and listed[sid]["digest"] == ref128[i], f"board {i} after round 2: {listed[sid]}")
+            check(listed[mega["id"]]["epoch"] == 2 * SC_ROUND_EPOCHS
+                  and listed[mega["id"]]["digest"] == ref(2 * SC_ROUND_EPOCHS),
+                  f"mega-board after round 2: {listed[mega['id']]}")
+            fe_metrics = _http(base, "GET", "/metrics")[1]
+            check(_prom_family(fe_metrics, "gol_serve_promotions_total") >= 1, "no promotion")
+            check(_prom_family(fe_metrics, "gol_serve_sessions_lost_total") == 0, "sessions lost")
+            lat = sorted(r2.latency)
+            check(lat, "no client saw a failover window close")
+            promo = {"p50_s": lat[len(lat) // 2], "p99_s": lat[int(len(lat) * 0.99)], "n": len(lat)}
+            print(f"serve_cluster promotion latency (client, first 429 failover to the next "
+                  f"200): p50 {promo['p50_s']} s, p99 {promo['p99_s']} s over {len(lat)} "
+                  f"sessions; {card['name_power']}", flush=True)
+
+            # -- round 3: SIGTERM-drain a second worker mid-round -----------------
+            ref192 = _sessions_reference(specs, 3 * SC_ROUND_EPOCHS)
+            drained = names[1]
+            held = _http(base, "GET", "/healthz")[1]["serve"]["tiled_resident"]["chunks_by_worker"]
+            moved_before = _prom_family(fe_metrics, "gol_serve_tiled_chunk_migrations_total")
+            r3, round3_s = _traffic_round(
+                base, pool, sids, [2 * SC_ROUND_EPOCHS] * len(sids), 3 * SC_ROUND_EPOCHS,
+                mega["id"], 2 * SC_ROUND_EPOCHS, lambda: procs[drained].send_signal(signal.SIGTERM),
+                len(sids) // 3)
+            rc = procs[drained].wait(timeout=WAIT_S)
+            check(rc == 0, f"the drained worker exited {rc}")
+            deadline = time.monotonic() + WAIT_S
+            while not settled(SC_WORKERS - 2):
+                check(time.monotonic() < deadline, "the drain never settled")
+                time.sleep(0.1)
+            check(not r3.not_found and not r3.failures and not r3.resumed,
+                  f"round 3: 404s {r3.not_found[:3]}, failures {r3.failures[:3]}, "
+                  f"resumed {list(r3.resumed)[:3]}")
+            listed = {r["id"]: r for r in _http(base, "GET", "/boards")[1]["boards"]}
+            for i, sid in enumerate(sids):
+                check(listed[sid]["epoch"] == 3 * SC_ROUND_EPOCHS
+                      and listed[sid]["digest"] == ref192[i], f"board {i} after the drain: {listed[sid]}")
+            check(listed[mega["id"]]["digest"] == ref(3 * SC_ROUND_EPOCHS),
+                  f"mega-board after the drain: {listed[mega['id']]}")
+            health = _http(base, "GET", "/healthz")[1]["serve"]
+            survivor = names[2]
+            check(health["tiled_resident"]["chunks_by_worker"] == {survivor: mega["tiles"]},
+                  f"chunks after the drain: {health['tiled_resident']['chunks_by_worker']}")
+            check(health["sessions_by_worker"] == {survivor: len(sids)},
+                  f"sessions after the drain: {health['sessions_by_worker']}")
+            single_copy = health["replication"]["single_copy_shards"]
+            check(single_copy == sum(health["shards_by_worker"].values()) and single_copy > 0,
+                  f"single-copy shards {single_copy} on the one survivor")
+            fe_metrics = _http(base, "GET", "/metrics")[1]
+            moved = _prom_family(fe_metrics, "gol_serve_tiled_chunk_migrations_total") - moved_before
+            check(moved >= held.get(drained, 0), f"{moved} chunks re-homed, {drained} held {held}")
+            check(_prom_family(fe_metrics, "gol_digest_mismatches_total") == 0, "digest mismatch")
+            check(_prom_family(fe_metrics, "gol_serve_sessions_lost_total") == 0, "sessions lost")
+
+        # -- shutdown: SIGTERM drains the frontend (130), the survivor leaves 0 --
+        fe.send_signal(signal.SIGTERM)
+        check(fe.wait(timeout=60) == 130, f"the frontend exited {fe.returncode} on SIGTERM")
+        check(procs[survivor].wait(timeout=60) == 0,
+              f"the surviving worker exited {procs[survivor].returncode}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=30)
+    emit(
+        "serve_cluster",
+        config=f"serve --serve-cluster on + {SC_WORKERS} backend --device cuda on card 0 (JAX "
+        "defaults: 64 shards, tile chunk 8, resident tiles and replication on; sessions 1032, "
+        "cells 2^25)",
+        sessions=len(specs), cells=cells, boot_s=boot_s, create_s=create_s,
+        round1_s=round1_s, round1_boards_per_s=len(sids) / round1_s,
+        round1_cell_updates_per_s=cells * SC_ROUND_EPOCHS / round1_s,
+        round1_client_p50_s=lat1[len(lat1) // 2], round1_client_p99_s=lat1[int(len(lat1) * 0.99)],
+        round1_per_worker=per_worker, sessions_by_worker=sessions_by_worker,
+        mega={"side": SC_MEGA_SIDE, "chunks": mega["tiles"], "chunks_by_worker": chunks,
+              "create_s": mega_create_s, "round_s": round_s, "bytes_per_round": round_bytes,
+              "perimeter_bytes": perimeter_bytes, "area_bytes": area_bytes,
+              "worker_serve_tiled_s": {n: _prom_label(tiled_w[n], "gol_program_device_seconds_total",
+                                                      "family", "serve_tiled") for n in names}},
+        kill={"worker": victim, "round_s": round2_s, "answers": r2.status,
+              "promoted_sessions": len(promoted), "mega_resumed_at": [e for e, _ in mega_resumes],
+              "promotion_latency": promo, "not_found": len(r2.not_found)},
+        drain={"worker": drained, "rc": rc, "round_s": round3_s, "answers": r3.status,
+               "chunks_held": held.get(drained, 0), "chunks_rehomed": moved,
+               "single_copy_shards": single_copy},
+        card=card["name_power"],
+    )
 
 
 def _harness_run(config, engine, device=None):
@@ -2993,7 +3470,8 @@ def main() -> int:
         # The serving plane and the host engines: no hand kernel on these
         # paths (the batched step is PyTorch on the card, as the JAX
         # package's is XLA), so they add no line to the kernels table.
-        phase("serve", serve_phase, tmp, card)
+        round1 = phase("serve", serve_phase, tmp, card)
+        phase("serve_cluster", serve_cluster_phase, tmp, card, round1)
         phase("serve_memo", memo_phase, card)
         phase("serve_canary", canary_phase, tmp, card)
         phase("host_engines", host_engines_phase, card)

@@ -26,7 +26,6 @@ REFUSED = {
 }
 REFUSED["frontend"] = {
     **{k: v for k, v in REFUSED["run"].items() if k != "--sparse-cluster"},
-    "--serve-*": f"the serving cluster (the frontend's /boards): {_NOT_PORTED}",
     "--frontend-*": f"the frontends' federation: {_NOT_PORTED}",
 }
 REFUSED["serve"] = {
@@ -209,7 +208,7 @@ def test_every_serve_flag_maps_to_config():
     samples = {"--serve-size-classes": "16,32", "--serve-slo-log": "a.log",
                "--serve-slo-availability": "0.99", "--serve-memo-block": "32",
                "--serve-memo-hit-floor": "0.5", "--serve-slo-slow-window-s": "900"}
-    for flag in sorted(flags - {"--serve-cluster"}):  # refused: the next test
+    for flag in sorted(flags):
         action = role._option_string_actions[flag]
         name = "serve_" + flag[len("--serve-"):].replace("-", "_")
         if action.choices:
@@ -222,12 +221,20 @@ def test_every_serve_flag_maps_to_config():
 
 
 def test_serve_refuses_the_cluster_and_federation_by_name():
+    """The serving cluster is ported (``--serve-cluster on`` loads, from
+    ``serve`` and from ``frontend``); the federation stays refused by name."""
     role = _subparser(tcli.main, "serve")
-    with pytest.raises(ValueError, match="serving cluster is a later slice"):
-        load_config(None, tcli._serve_overrides(role.parse_args(["--serve-cluster", "on"])))
+    cfg = load_config(None, tcli._serve_overrides(role.parse_args(["--serve-cluster", "on"])))
+    assert cfg.serve_cluster and cfg.serve_tiled_resident and cfg.serve_replicate
+    fe = _subparser(tcli.main, "frontend").parse_args(
+        ["--serve-cluster", "on", "--serve-shards", "8", "--serve-replicate", "off"]
+    )
+    cfg = load_config(None, tcli._frontend_overrides(fe))
+    assert (cfg.serve_cluster, cfg.serve_shards, cfg.serve_replicate) == (True, 8, False)
     with pytest.raises(ValueError, match="frontend federation"):
         load_config(None, {"frontend_seeds": "127.0.0.1:9000"})
-    # The cluster-only knobs parse, validate and stay inert, as in the JAX package.
+    # Without the switch the cluster-only knobs parse, validate and stay
+    # inert, as in the JAX package.
     cfg = load_config(None, tcli._serve_overrides(role.parse_args(["--serve-shards", "8"])))
     assert cfg.serve_shards == 8 and not cfg.serve_cluster
     with pytest.raises(ValueError, match="serve_shards=0 must be >= 1"):

@@ -191,6 +191,39 @@ def test_quiescent_tiles_skip_chunks(pattern, offset, epochs, period):
     assert period in quiescent.values(), quiescent
 
 
+@pytest.mark.parametrize("advanced", [1, 3])
+@pytest.mark.parametrize("engine", ["actor", "actor-native"])
+def test_quiescent_skip_spares_the_actor_engines(tmp_path, engine, advanced):
+    """The actor engines keep per-cell histories, so the quiescence tier
+    must drive every chunk of theirs: a period-2 tile that skipped an odd
+    number of chunks would wake in the wrong phase.  A blinker plus a
+    glider that crosses its tile, pre-advanced an odd number of
+    generations, must end on the oracle's board with no chunk skipped."""
+    from akka_game_of_life_tpu_torch.utils.patterns import encode_rle
+
+    board = np.zeros((32, 32), np.uint8)
+    board[24, 23:26] = 1  # blinker
+    board[1, 2] = board[2, 3] = 1  # glider heading south-east
+    board[3, 1:4] = 1
+    board = dense_oracle(board, "conway", advanced)
+    path = tmp_path / "start.rle"
+    path.write_text(encode_rle(board))
+    reg = _registry()
+    # The pure-Python actor engine holds the GIL for whole chunks: a wide
+    # heartbeat margin keeps a loaded host from auto-downing both workers.
+    cfg = SimulationConfig(
+        height=32, width=32, pattern=str(path), pattern_offset=(0, 0),
+        max_epochs=90, sparse_cluster=True, flight_dir="", failure_timeout_s=30.0,
+    )
+    with cluster(
+        cfg, 2, observer=BoardObserver(out=io.StringIO()), engine=engine,
+        device="cpu", registry=reg,
+    ) as h:
+        final = h.run_to_completion()
+    np.testing.assert_array_equal(final, dense_oracle(board, "conway", 90))
+    assert reg.snapshot().get("gol_tiles_skipped_total", 0) == 0
+
+
 def test_random_board_never_skips():
     reg = _registry()
     cfg = SimulationConfig(

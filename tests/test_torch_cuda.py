@@ -816,3 +816,54 @@ def test_serve_router_on_card_matches_cpu():
         return out
 
     assert script("cuda") == script("cpu")
+
+
+@pytest.mark.cuda
+def test_serve_cluster_on_card_matches_cpu():
+    """A two-worker serving cluster (worker threads on the card) answers one
+    script of batch sessions, a worker-resident tiled session and a
+    ship-mode one exactly as the same cluster on the CPU."""
+    _need_gpu()
+    import threading
+
+    from akka_game_of_life_tpu_torch.obs.catalog import install
+    from akka_game_of_life_tpu_torch.obs.metrics import MetricsRegistry
+    from akka_game_of_life_tpu_torch.ops import digest as odigest
+    from akka_game_of_life_tpu_torch.runtime.backend import BackendWorker
+    from akka_game_of_life_tpu_torch.runtime.frontend import Frontend
+
+    def script(device, resident):
+        cfg = SimulationConfig(
+            role="serve", serve_cluster=True, port=0, max_epochs=None, flight_dir="",
+            serve_shards=16, serve_size_classes="16,32", failure_timeout_s=5.0,
+            serve_tiled_resident=resident,
+        )
+        registry = install(MetricsRegistry())
+        fe = Frontend(cfg, min_backends=2, registry=registry)
+        fe.start()
+        workers = []
+        try:
+            for i in range(2):
+                w = BackendWorker("127.0.0.1", fe.port, name=f"w{i}", device=device,
+                                  registry=registry)
+                w.connect()
+                threading.Thread(target=w.run, daemon=True).start()
+                workers.append(w)
+            assert fe.wait_for_backends(timeout=30)
+            plane = fe.serve_plane
+            sids = [plane.create(rule=r, height=h, width=w, seed=i, with_board=False)["id"]
+                    for i, (r, h, w) in enumerate([("conway", 30, 30), ("brians-brain", 16, 9),
+                                                   ("highlife", 32, 20)])]
+            mega = plane.create(rule="conway", height=72, width=64, seed=9, with_board=False)
+            out = [plane.step(sid, 5) for sid in sids]
+            out += [plane.step(mega["id"], n) for n in (8, 3)]
+            out.append(odigest.digest_dense_np(plane.get(mega["id"])["board"]).tolist())
+            assert all(w.serve_plane.device.type == torch.device(device).type for w in workers)
+            return out
+        finally:
+            fe.stop()
+            for w in workers:
+                w.stop()
+
+    for resident in (True, False):
+        assert script("cuda", resident) == script("cpu", resident)

@@ -63,8 +63,9 @@ def test_serve_native_and_host_engine_modules_are_covered():
     """The serving plane, the native host engines and their helpers are
     the port's own copies, checked like every other module."""
     expected = [
-        *(PORT / "serve" / f"{n}.py" for n in ("__init__", "api", "batch", "canary", "federation",
-                                               "memo", "sessions")),
+        *(PORT / "serve" / f"{n}.py" for n in ("__init__", "api", "batch", "canary", "cluster",
+                                               "federation", "memo", "sessions",
+                                               "worker")),
         *(PORT / "native" / f"{n}.py" for n in ("__init__", "engine")),
         PORT / "obs" / "slo.py", PORT / "ops" / "macroblock.py", PORT / "runtime" / "actor_engine.py",
     ]
