@@ -632,6 +632,58 @@ def _chaos_net_overrides(args: argparse.Namespace) -> Optional[dict]:
     return out
 
 
+def _add_frontend_federation(p: argparse.ArgumentParser) -> None:
+    """The frontend federation knobs (``serve/federation.py``): every
+    ``--frontend-X`` flag maps onto ``SimulationConfig.frontend_X``."""
+    g = p.add_argument_group(
+        "frontend federation",
+        "N serving-cluster frontends gossip membership and slice ownership, "
+        "forward foreign-slice ops to their owner and replicate control "
+        "state to a standby peer",
+    )
+    g.add_argument(
+        "--frontend-seeds", default=None, metavar="H1:P1,H2:P2,...",
+        help="cluster addresses of any live frontends; arms the federation "
+        "(a node may seed itself; default off)",
+    )
+    g.add_argument(
+        "--frontend-advertise", default=None, metavar="HOST:PORT",
+        help="address this frontend advertises to its peers (default: the "
+        "bound host and port)",
+    )
+    g.add_argument(
+        "--frontend-gossip-interval-s", default=None, metavar="DUR",
+        help="gossip cadence (default 0.5s)",
+    )
+    g.add_argument(
+        "--frontend-gossip-timeout-s", default=None, metavar="DUR",
+        help="gossip age past which a peer is suspect and its slices park "
+        "writes with a 429 (default 3s)",
+    )
+    g.add_argument(
+        "--frontend-replicate-every", type=int, default=None, metavar="N",
+        help="control rows per replication frame to the standby peer "
+        "(default 16)",
+    )
+    g.add_argument(
+        "--frontend-replicate-interval-s", default=None, metavar="DUR",
+        help="control-state replication pass cadence (default 0.25s)",
+    )
+
+
+def _federation_overrides(args: argparse.Namespace) -> dict:
+    return {
+        "frontend_seeds": args.frontend_seeds,
+        "frontend_advertise": args.frontend_advertise,
+        "frontend_gossip_interval_s": _duration(args.frontend_gossip_interval_s),
+        "frontend_gossip_timeout_s": _duration(args.frontend_gossip_timeout_s),
+        "frontend_replicate_every": args.frontend_replicate_every,
+        "frontend_replicate_interval_s": _duration(
+            args.frontend_replicate_interval_s
+        ),
+    }
+
+
 def _frontend_parser(sub) -> argparse.ArgumentParser:
     p = sub.add_parser("frontend", help="cluster coordinator")
     _add_board(p)
@@ -667,6 +719,7 @@ def _frontend_parser(sub) -> argparse.ArgumentParser:
     # The simulation frontend can ALSO host the serve plane (one cluster,
     # both products): --serve-cluster on mounts /boards on its obs port.
     _add_serve(p)
+    _add_frontend_federation(p)
     _add_chaos_net(p)
     _add_distributed(p)
     return p
@@ -696,6 +749,7 @@ def _frontend_overrides(args: argparse.Namespace) -> dict:
         "rebalance_max_inflight": args.rebalance_max_inflight,
         "rebalance_deadline_s": _duration(args.rebalance_deadline_s),
         **_serve_overrides(args),
+        **_federation_overrides(args),
         "net_chaos": _chaos_net_overrides(args),
     }
     if args.inject_faults:
@@ -1131,6 +1185,7 @@ def _serve_parser(sub) -> None:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--min-backends", type=int, default=1)
     _add_serve(p)
+    _add_frontend_federation(p)
     _add_ff(p)
     _add_obs_programs(p)
 
@@ -1144,6 +1199,7 @@ def _serve(args: argparse.Namespace) -> int:
             "host": args.host,
             "port": args.port,
             **_serve_overrides(args),
+            **_federation_overrides(args),
             **_ff_overrides(args),
             **_obs_programs_overrides(args),
         },

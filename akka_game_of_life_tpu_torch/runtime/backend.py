@@ -33,9 +33,16 @@ also hosts session shards and resident tiled chunks in a
 ``serve/worker.py:ServeWorkerPlane`` on its device (the torch engine's, else
 the one it was given).
 
+In a federated serving cluster (``serve/federation.py``) the worker holds
+the peer frontends' listeners (WELCOME's ``federation``, refreshed by
+``FED_PEERS``).  When its frontend's channel ends, the control reader
+re-homes it there: it dials a fallback, registers under the same name and
+announces its sessions with ``SHARD_HOME``, then reads the new channel;
+run()'s dispatch loop never sees the swap, and a control send that meets
+the dead channel waits for the swap and goes out on the new one.
+
 Not carried over: the ``jax`` engine (refused by name; the port's device
-engine is ``torch``), and the control channel's re-home to a peer frontend
-(it dials the federation's fallbacks, which come with the federation).
+engine is ``torch``).
 ``P.PROFILE`` captures a ``torch.profiler`` window on a thread of its own.
 """
 
@@ -389,6 +396,18 @@ def _np_chunk(padded: np.ndarray, steps: int, halo: int, rule: Rule) -> np.ndarr
 # zero added latency — and even a wedged batch self-heals through the
 # receiver's PEER_PULL re-asks (our rings are always in our local store).
 _RING_LINGER_S = 0.02
+# How long a federated worker whose frontend died tries its fallbacks
+# before the loss is an ordinary disconnect.
+REHOME_TIMEOUT_S = 15.0
+
+
+def _fallbacks(addrs) -> List[Tuple[str, int]]:
+    """WELCOME's ``federation`` or FED_PEERS' ``peers``: [[host, port]]."""
+    return [
+        (str(a[0]), int(a[1]))
+        for a in addrs or []
+        if isinstance(a, (list, tuple)) and len(a) == 2
+    ]
 
 
 class _PeerSender:
@@ -839,6 +858,16 @@ class BackendWorker:
         # frontend's serve plane is on; this worker then hosts session
         # shards in its own batch engine on its device (serve/worker.py).
         self.serve_plane = None
+        # The federation's re-home targets (peer frontends' listeners):
+        # from WELCOME, refreshed by FED_PEERS; empty outside a federation.
+        self._federation_fallbacks: List[Tuple[str, int]] = []
+        # Notified when the control channel is swapped by a re-home, or
+        # when a re-home gave up (_rehome_failed).
+        self._home_cv = threading.Condition()
+        self._rehome_failed = False
+        # Control frames read (by the reader) and dispatched (by run()).
+        self._received = 0
+        self._dispatched = 0
         self._reader: Optional[threading.Thread] = None
         self._step_chunk: Optional[Callable[[np.ndarray, int, int], np.ndarray]] = None
         self._actor_engines: Dict[TileId, object] = {}
@@ -955,6 +984,7 @@ class BackendWorker:
                 node=welcome.get("name") or self.name,
                 enabled=bool(_obs.get("programs", True)),
             )
+        self._federation_fallbacks = _fallbacks(welcome.get("federation"))
         if welcome.get("serve_cluster"):
             from akka_game_of_life_tpu_torch.serve.worker import ServeWorkerPlane
 
@@ -1013,6 +1043,7 @@ class BackendWorker:
                     self.stopped_reason = self.stopped_reason or "disconnected"
                     break
                 self._dispatch(msg)
+                self._dispatched += 1
             self._stop.set()
         except (OSError, ValueError) as e:
             # ValueError = a malformed frame from wire.recv (bad magic,
@@ -1044,9 +1075,111 @@ class BackendWorker:
 
     def _control_send(self, msg: dict) -> None:
         """Late-bound control-channel send: reads ``self.channel`` at call
-        time, so the serve plane's bound sender follows the channel the
-        worker holds now."""
-        self.channel.send(msg)
+        time, so the serve plane's bound sender follows a re-home.  A frame
+        that meets the dead channel of a federated worker was its dead
+        frontend's (a result, a replication pass): it waits for the
+        reader's re-home and is dropped, so the serve plane's threads live
+        on; it raises only when the re-home fails (the threads then stop,
+        as on any dead control channel).  Sent to the new frontend, a
+        result would answer whatever op of its own bears the same rid."""
+        channel = self.channel
+        try:
+            channel.send(msg)
+        except OSError:
+            if not self._rehomable():
+                raise
+            self._await_rehome(channel)
+
+    def _rehomable(self) -> bool:
+        return (
+            not self._stop.is_set()
+            and self.serve_plane is not None
+            and bool(self._federation_fallbacks)
+        )
+
+    def _await_rehome(self, dead: Channel) -> None:
+        """Wait until a re-home replaces ``dead``; raises ConnectionError
+        when the re-home gave up or did not land within its bound."""
+        deadline = time.monotonic() + REHOME_TIMEOUT_S + 5.0
+        with self._home_cv:
+            while self.channel is dead:
+                left = deadline - time.monotonic()
+                if self._rehome_failed or self._stop.is_set() or left <= 0:
+                    raise ConnectionError(
+                        "control channel lost and the re-home failed"
+                    )
+                self._home_cv.wait(left)
+
+    def _rehome(self) -> bool:
+        """The control channel ended in a FEDERATED cluster: let the dead
+        frontend's last ops land, dial a peer frontend from the fallbacks,
+        register under the SAME name (the sessions live in this process,
+        nothing is lost), announce the hosted sessions with ``SHARD_HOME``
+        so the adopting frontend closes its failover windows, then swap
+        the channel.  True when the worker is homed anew; False is an
+        ordinary disconnect (not federated, stopping, or no fallback
+        answered within ``REHOME_TIMEOUT_S``)."""
+        if not self._rehomable():
+            return False
+        deadline = time.monotonic() + REHOME_TIMEOUT_S
+        # Settle first: every frame the dead frontend sent is dispatched and
+        # run, so the session truth announced below counts its ops.
+        while self._dispatched < self._received and time.monotonic() < deadline:
+            time.sleep(0.01)
+        self.serve_plane.settle(max(0.0, deadline - time.monotonic()))
+        # Their answers were the dead frontend's (see _control_send).
+        self.serve_plane.discard_results()
+        while time.monotonic() < deadline and not self._stop.is_set():
+            for host, port in list(self._federation_fallbacks):
+                if (host, port) == (self.host, self.port):
+                    continue  # the frontend that just died
+                try:
+                    sock = socket.create_connection((host, port), timeout=3)
+                    sock.settimeout(None)
+                    channel = Channel(sock)
+                    channel.send({
+                        "type": P.REGISTER,
+                        "name": self.name,
+                        "peer_port": self.peer_port,
+                        "engine": self.engine,
+                        "pallas": self.pallas or "auto",
+                    })
+                    welcome = channel.recv()
+                    if not welcome or welcome.get("type") != P.WELCOME:
+                        channel.close()
+                        continue
+                    if self.send_deadline_s:
+                        channel.set_send_deadline(self.send_deadline_s)
+                    # Before the swap: the adopting frontend learns the
+                    # session truth ahead of any result or replication
+                    # frame of this worker's.
+                    channel.send({
+                        "type": P.SHARD_HOME,
+                        **self.serve_plane.home_summary(),
+                    })
+                except (OSError, ValueError):
+                    continue
+                old = self.channel
+                with self._home_cv:
+                    self.channel = channel
+                    self.host, self.port = host, port
+                    self._federation_fallbacks = (
+                        _fallbacks(welcome.get("federation"))
+                        or self._federation_fallbacks
+                    )
+                    self._home_cv.notify_all()
+                try:
+                    old.close()
+                except OSError:
+                    pass
+                print(
+                    f"worker {self.name} re-homed control channel to "
+                    f"{host}:{port}",
+                    flush=True,
+                )
+                return True
+            time.sleep(0.25)
+        return False
 
     def _read_control(self) -> None:
         """The control channel's only reader: every frame goes to run()'s
@@ -1057,15 +1190,33 @@ class BackendWorker:
         the worker blocked sending a TILE_STATE the frontend does not read
         (its reader waits for the frontend lock), while the lock's holder
         waits to send a TICK behind a DEPLOY this worker does not read.
-        EOF arrives as None, a wire error as the exception itself."""
-        try:
-            while True:
+        EOF arrives as None, a wire error as the exception itself.
+
+        Where the worker is federated, the end of the channel (EOF or a
+        wire error) re-homes it first (:meth:`_rehome`) and the reader goes
+        on with the new channel; only a failed re-home reaches run()."""
+        while True:
+            try:
                 msg = self.channel.recv()
-                self._inbox.put(msg)
-                if msg is None:
-                    return
-        except Exception as e:  # noqa: BLE001 — run() raises it
-            self._inbox.put(e)
+            except Exception as e:  # noqa: BLE001 — run() raises it
+                if isinstance(e, (OSError, ValueError)) and self._rehome():
+                    continue
+                self._give_up_rehome()
+                self._inbox.put(e)
+                return
+            if msg is None:
+                if self._rehome():
+                    continue
+                self._give_up_rehome()
+                self._inbox.put(None)
+                return
+            self._received += 1
+            self._inbox.put(msg)
+
+    def _give_up_rehome(self) -> None:
+        with self._home_cv:
+            self._rehome_failed = True
+            self._home_cv.notify_all()
 
     def _run_pre_stop_hooks(self) -> None:
         with self._pre_stop_lock:
@@ -1390,6 +1541,11 @@ class BackendWorker:
                 self.channel.send({"type": P.HEARTBEAT})
                 self._m_heartbeats.inc()
             except OSError:
+                # A federated worker may be mid-re-home: this one loop
+                # lives on (it reads self.channel at every send, so it
+                # follows the swap).
+                if self._rehomable() and not self._rehome_failed:
+                    continue
                 return
 
     def _cost_loop(self, interval: float) -> None:
@@ -1565,6 +1721,9 @@ class BackendWorker:
             # heartbeat-adjacent control traffic.
             if self.serve_plane is not None:
                 self.serve_plane.handle(msg)
+        elif kind == P.FED_PEERS:
+            # The federation's peer set changed: the re-home fallbacks.
+            self._federation_fallbacks = _fallbacks(msg.get("peers"))
         elif kind == P.PROFILE:
             # The frontend's fan-out: capture on a daemon thread, so a
             # multi-second window never blocks this control reader.

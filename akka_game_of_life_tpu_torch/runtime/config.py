@@ -22,12 +22,12 @@ key with the JAX package's defaults and checks; ``serve_cluster = true``
 runs the serving cluster (``serve/cluster.py``), and its keys
 (``serve_shards``, ``serve_tile_chunk``, ``serve_tiled_resident*``,
 ``serve_replicate*``) parse and validate as in the JAX package, inert while
-it is off.  ``load_config`` reads the same TOML or JSON
+it is off; the ``frontend_*`` keys federate several such frontends
+(``serve/federation.py``).  ``load_config`` reads the same TOML or JSON
 files (``examples/headline-65536.toml`` loads unchanged) and accepts the
 same duration spellings ("5s", "3000ms").  A key the port does not
-support — a federation ``frontend_*`` knob, or any other — raises a
-``ValueError`` that names it, never a silent default.  A non-zero ``pallas_vmem_limit_mb`` is
-refused by name too: the card has no Mosaic VMEM budget (the kernels keep
+support raises a ``ValueError`` that names it, never a silent default.  A
+non-zero ``pallas_vmem_limit_mb`` is refused by name too: the card has no Mosaic VMEM budget (the kernels keep
 their tiles in registers and small shared-memory rings).
 
 One default differs from the JAX package on purpose: ``pallas_block_rows``
@@ -358,6 +358,23 @@ class SimulationConfig:
     serve_memo_warmup: int = 16
     serve_memo_disable_after: int = 3
     serve_memo_certify_every: int = 64
+    # The frontend federation (serve/federation.py): N serving-cluster
+    # frontends, each owning a rendezvous-hashed slice of the serve shard
+    # space, with no coordinator.  frontend_seeds is the master switch:
+    # comma-separated host:port cluster addresses of any live frontends (a
+    # node seeds itself harmlessly); "" = one frontend.  frontend_advertise
+    # is this frontend's own host:port ("" = the bound host and port).
+    # Gossip ticks every frontend_gossip_interval_s; a peer silent past
+    # frontend_gossip_timeout_s is SUSPECT (its slices park writes with a
+    # retryable 429), never promoted on silence alone.  Control rows
+    # stream to the standby peer in frames of frontend_replicate_every
+    # rows, a pass every frontend_replicate_interval_s.
+    frontend_seeds: str = ""
+    frontend_advertise: str = ""
+    frontend_gossip_interval_s: float = 0.5
+    frontend_gossip_timeout_s: float = 3.0
+    frontend_replicate_every: int = 16
+    frontend_replicate_interval_s: float = 0.25
 
     fault_injection: FaultInjectionConfig = dataclasses.field(
         default_factory=FaultInjectionConfig
@@ -614,6 +631,42 @@ class SimulationConfig:
                 f"serve_memo_certify_every={self.serve_memo_certify_every} "
                 f"must be >= 0 (0 = no sampled certification)"
             )
+        for name in ("frontend_seeds", "frontend_advertise"):
+            value = getattr(self, name)
+            entries = [s for s in value.split(",") if s.strip()]
+            if name == "frontend_advertise" and len(entries) > 1:
+                raise ValueError(
+                    f"frontend_advertise={value!r} must be one host:port"
+                )
+            for entry in entries:
+                host, sep, port = entry.strip().rpartition(":")
+                if not sep or not host or not port.isdigit():
+                    raise ValueError(
+                        f"{name} entry {entry.strip()!r} must be host:port"
+                    )
+        if self.frontend_gossip_interval_s <= 0:
+            raise ValueError(
+                f"frontend_gossip_interval_s="
+                f"{self.frontend_gossip_interval_s} must be > 0"
+            )
+        if self.frontend_gossip_timeout_s <= self.frontend_gossip_interval_s:
+            raise ValueError(
+                f"frontend_gossip_timeout_s="
+                f"{self.frontend_gossip_timeout_s} must exceed "
+                f"frontend_gossip_interval_s="
+                f"{self.frontend_gossip_interval_s} (a peer must miss "
+                f"multiple gossip ticks before it is suspect)"
+            )
+        if self.frontend_replicate_every < 1:
+            raise ValueError(
+                f"frontend_replicate_every={self.frontend_replicate_every} "
+                f"must be >= 1"
+            )
+        if self.frontend_replicate_interval_s <= 0:
+            raise ValueError(
+                f"frontend_replicate_interval_s="
+                f"{self.frontend_replicate_interval_s} must be > 0"
+            )
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -664,6 +717,8 @@ _DURATION_FIELDS = {
     "serve_replicate_interval_s", "serve_replicate_max_lag_s",
     "serve_tiled_resident_halo_timeout_s", "serve_slo_fast_window_s",
     "serve_slo_slow_window_s", "serve_canary_interval_s",
+    "frontend_gossip_interval_s", "frontend_gossip_timeout_s",
+    "frontend_replicate_interval_s",
 }
 
 # The reference's config spellings the JAX package also accepts.
@@ -740,13 +795,6 @@ def load_config(
         | (set(fi_kwargs) - _field_names(FaultInjectionConfig))
         | (set(nc_kwargs) - _field_names(NetworkChaosConfig))
     )
-    federation = [k for k in unsupported if k.startswith("frontend_")]
-    if federation:
-        raise ValueError(
-            f"config keys {federation} configure the frontend federation, "
-            f"which the PyTorch port does not support yet (a later slice "
-            f"of the port, on top of the serving cluster)"
-        )
     if unsupported:
         raise ValueError(
             f"config keys {unsupported} are not supported by the PyTorch "

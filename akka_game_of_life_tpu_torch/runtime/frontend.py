@@ -18,8 +18,12 @@ router (``serve/cluster.py:ClusterServePlane``): sessions hash-shard across
 the same workers, ``/boards`` and the SLO tracker mount on the obs endpoint,
 and a serve-only cluster (no ``max_epochs``) is membership plus the plane.
 
-Not carried over: frontend federation (its ``frontend_*`` keys are
-refused).  ``POST /profile`` captures a ``torch.profiler`` window
+With ``frontend_seeds`` set as well, several such frontends federate
+(``serve/federation.py:FederationPlane``): they gossip over this listener
+(a connection whose first frame is ``P_HELLO`` is a peer frontend), own
+slices of one keyspace, forward ops to each other and replicate control
+rows to a standby peer; ``stop()`` then leaves the workers running, so they
+re-home to a peer.  ``POST /profile`` captures a ``torch.profiler`` window
 (``runtime/profiling.py``) and fans it out to the workers.
 """
 
@@ -542,6 +546,26 @@ class Frontend:
             (config.host, config.port), reuse_port=False
         )
         self.port = self._listener.getsockname()[1]
+        # The frontend federation: with frontend_seeds set, this frontend
+        # gossips membership and slice ownership with its peers, forwards
+        # foreign-slice serve ops and replicates its control rows to a
+        # standby peer.  Built after the listener, so the advertised
+        # identity carries the bound port.
+        self.federation = None
+        if self.serve_plane is not None and config.frontend_seeds:
+            from akka_game_of_life_tpu_torch.serve.federation import FederationPlane
+
+            adv = config.frontend_advertise or f"{config.host}:{self.port}"
+            host, _, port_s = adv.rpartition(":")
+            if host in ("0.0.0.0", ""):
+                host = "127.0.0.1"
+            self.federation = FederationPlane(
+                config, self.serve_plane,
+                name=f"{host}:{int(port_s)}",
+                cluster_addr=(host, int(port_s)),
+                events=self.events,
+            )
+            self.federation.on_peers_changed(self._push_fed_peers)
         self._threads: List[threading.Thread] = []
 
     # -- lifecycle -----------------------------------------------------------
@@ -570,7 +594,13 @@ class Frontend:
                 )
                 routes.update(
                     board_routes(
-                        self.serve_plane, tracer=self.tracer,
+                        # With federation on, /boards mounts the federated
+                        # router: one routing level (the slice's owner)
+                        # above the plane's shard table.
+                        self.federation.router
+                        if self.federation is not None
+                        else self.serve_plane,
+                        tracer=self.tracer,
                         slo=self._serve_slo,
                     )
                 )
@@ -581,6 +611,12 @@ class Frontend:
                 tracer=self.tracer,
                 routes=routes,
             )
+        if self.federation is not None:
+            if self._metrics_server is not None:
+                # Peers learn this HTTP port by gossip: their 307s for
+                # this frontend's boards point there.
+                self.federation.set_http_port(self._metrics_server.port)
+            self.federation.start()
         for fn in (self._accept_loop, self._maintenance_loop, self._io_loop):
             t = threading.Thread(target=fn, daemon=True, name=fn.__name__)
             t.start()
@@ -619,7 +655,20 @@ class Frontend:
             # Outside the frontend lock (frontend → plane is the one
             # permitted nesting order, and health() takes the plane lock).
             doc["serve"] = self.serve_plane.health()
+        if self.federation is not None:
+            # Peers and gossip ages, the slice map, forwarded and parked
+            # ops, promotions in flight.
+            doc["federation"] = self.federation.health()
         return doc
+
+    def _push_fed_peers(self) -> None:
+        """The federation's peer set changed: push the control re-home
+        fallbacks to every live worker (FED_PEERS), so a worker that joined
+        before the federation converged, or outlived a peer, holds the
+        current list."""
+        fallbacks = self.federation.worker_fallbacks()
+        for m in self.membership.alive_members():
+            self._safe_send(m, {"type": P.FED_PEERS, "peers": fallbacks})
 
     def _cluster_profile(self, seconds: Optional[float]) -> dict:
         """POST /profile: capture locally first (the rate limiter lives
@@ -976,12 +1025,36 @@ class Frontend:
 
     def stop(self) -> None:
         self._stop.set()
+        handoff = False
+        if self.federation is not None:
+            # Before close() clears the peer table: is there a live peer
+            # this frontend's workers can re-home to?
+            handoff = bool(self.federation.worker_fallbacks())
+            # Before the plane closes: the peer links drop (the survivors
+            # see EOF and a refused redial, and promote), and no forwarded
+            # op lands on a closed plane.
+            self.federation.close()
         if self.serve_plane is not None:
             # Before SHUTDOWN frames: pending tenant ops fail fast with
             # "router is closed" instead of timing out against workers
             # that are about to leave.
             self.serve_plane.close()
         members = self.membership.alive_members()
+        if handoff:
+            # Leave the serve workers RUNNING: a SHUTDOWN would take every
+            # session this frontend owns down with it.  Closing the channel
+            # instead makes each worker re-home, state intact, to a peer
+            # from its FED_PEERS fallbacks and announce SHARD_HOME there:
+            # the path a kill -9 takes.
+            for m in members:
+                sender = self._sender(m)
+                if sender is not None:
+                    sender.close()
+                try:
+                    m.channel.close()
+                except OSError:
+                    pass
+            members = []
         for m in members:
             self._safe_send(m, {"type": P.SHUTDOWN})
         # Bounded: a member that does not read costs 2 s, not the shutdown.
@@ -1101,6 +1174,16 @@ class Frontend:
         member: Optional[Member] = None
         try:
             hello = channel.recv()
+            if (
+                isinstance(hello, dict)
+                and hello.get("type") == P.P_HELLO
+                and self.federation is not None
+            ):
+                # A peer FRONTEND dialed this listener (the federation's
+                # peer plane shares it): serve_peer answers the handshake
+                # and reads the connection until EOF.
+                self.federation.serve_peer(channel, hello)
+                return
             # The listener is an open TCP port: a hello that is not a
             # well-typed REGISTER (port scan, wrong peer, wrong version) is
             # closed without ceremony — and without a thread traceback.
@@ -1150,6 +1233,13 @@ class Frontend:
                     "serve_cluster": True,
                     "serve": serve_policy(self.config),
                 }
+                if self.federation is not None:
+                    # The control channel's re-home fallbacks: the live
+                    # peers' listeners (pushed again as FED_PEERS whenever
+                    # the peer set changes).
+                    welcome_serve["federation"] = (
+                        self.federation.worker_fallbacks()
+                    )
             self._safe_send(
                 member,
                 {

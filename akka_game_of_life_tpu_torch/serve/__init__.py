@@ -8,7 +8,8 @@ cross-tenant memo plane (:mod:`.memo`), the canary prober (:mod:`.canary`)
 and ``/boards`` HTTP routes mounted on the obs endpoint (:mod:`.api`).  The
 serving cluster shards sessions over backend workers: the frontend's
 ``ClusterServePlane`` / ``run_serve_cluster`` (:mod:`.cluster`) and each
-worker's ``ServeWorkerPlane`` (:mod:`.worker`).
+worker's ``ServeWorkerPlane`` (:mod:`.worker`); several such frontends
+federate over one keyspace (:mod:`.federation`).
 """
 
 from akka_game_of_life_tpu_torch.serve.api import board_routes, run_serve

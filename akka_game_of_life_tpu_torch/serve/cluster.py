@@ -82,11 +82,12 @@ big-board cluster.
 Counterpart of ``akka_game_of_life_tpu/serve/cluster.py``, frame for frame,
 so its workers may be the port's or the JAX package's.  The frontend half
 holds no device state (index, routing, digests on the host); the cells
-step on the workers' devices (``serve/worker.py``).  Not carried over yet:
-the frontend-federation hooks (``control_rows``,
-``begin_federation_promotion``, ``expire_federation_promotion``), which
-belong with ``FederationPlane``; ``on_shard_home`` stays, since a worker
-announces ``SHARD_HOME`` after any control re-home.
+step on the workers' devices (``serve/worker.py``).  With the frontend
+federation on (``serve/federation.py``) the plane also streams its control
+rows to a standby peer frontend (:meth:`ClusterServePlane.control_rows`),
+adopts a dead peer's rows (:meth:`begin_federation_promotion`, closed by
+the re-homed workers' ``SHARD_HOME`` or by
+:meth:`expire_federation_promotion`).
 """
 
 from __future__ import annotations
@@ -1998,6 +1999,110 @@ class ClusterServePlane:
                 promoted=promoted, lost=len(lost),
                 digest_refused=len(failed),
                 outcome="lost" if p.error is not None else "promoted",
+            )
+
+    # -- frontend federation hooks (serve/federation.py) ----------------------
+
+    def control_rows(self) -> List[dict]:
+        """This frontend's slice of control state, one row per session —
+        what the federation streams to its standby peer frontend.  Batch
+        rows promote into placeholder index entries on a confirmed
+        frontend death; tiled rows (``shard`` None — the cells live on
+        workers) ride as certified-floor observability only."""
+        with self._lock:
+            return [
+                {
+                    "sid": sid, "tenant": e.tenant, "kind": e.kind,
+                    "rule": e.rule_s, "height": e.height, "width": e.width,
+                    "seed": e.seed, "density": e.density, "shard": e.shard,
+                    "epoch": e.epoch, "digest": e.digest,
+                    "slice": shard_of(sid, self.n_shards),
+                }
+                for sid, e in self.sessions.items()
+            ]
+
+    def begin_federation_promotion(self, rows: List[dict], *,
+                                   origin: str) -> None:
+        """A peer frontend died and THIS frontend (its rendezvous
+        standby) adopted its slices: install the replicated batch rows as
+        placeholder index entries and open a federation failover window
+        per shard — windowed ops answer retryable 429 ``failover`` (never
+        404) until the dead frontend's workers re-home their control
+        channel here and announce session truth with ``SHARD_HOME``
+        (:meth:`on_shard_home`), or the re-home grace expires
+        (:meth:`expire_federation_promotion`)."""
+        now = time.monotonic()
+        shards: set = set()
+        installed = 0
+        with self._lock:
+            for row in rows:
+                if not isinstance(row, dict) or row.get("kind") != "batch":
+                    continue  # tiled cells live on workers; nothing to park
+                sid = str(row.get("sid", ""))
+                if not sid or sid in self.sessions:
+                    continue
+                shard = shard_of(sid, self.n_shards)
+                e = _Entry(
+                    sid, str(row.get("tenant", "default")), "batch",
+                    str(row.get("rule", "B3/S23")),
+                    int(row.get("height", 0)), int(row.get("width", 0)),
+                    int(row.get("seed", 0)),
+                    float(row.get("density", 0.5)), shard,
+                )
+                e.epoch = int(row.get("epoch", 0))
+                e.digest = row.get("digest")
+                e.repl_dirty_since = now
+                self.sessions[sid] = e
+                self._cells += e.height * e.width
+                shards.add(shard)
+                installed += 1
+            for shard in shards:
+                if shard in self._promoting:
+                    continue
+                self._promoting[shard] = {
+                    # dest=None can never collide with a worker name, so
+                    # the replica-promotion reply path (_on_promoted's
+                    # dest guard) ignores these windows.
+                    "fed": True, "dest": None, "origin": origin,
+                    "t0": now, "sessions": installed, "dropped": set(),
+                    "span": self.tracer.start(
+                        "serve.fed_promote", node="frontend", shard=shard,
+                        origin=origin,
+                    ),
+                }
+            self._rebuild_routes_locked()
+            self._wake.set()
+        if self.events is not None:
+            self.events.emit(
+                "serve_federation_promotion", origin=origin,
+                sessions=installed, shards=len(shards),
+            )
+
+    def expire_federation_promotion(self, shard: int) -> None:
+        """No ``SHARD_HOME`` arrived within the re-home grace — the dead
+        frontend's workers died with it.  Close the window honestly: the
+        placeholder sessions are lost (counted, evented), and the shard
+        reopens for fresh creates on a local worker."""
+        lost = 0
+        with self._lock:
+            info = self._promoting.get(shard)
+            if info is None or not info.get("fed"):
+                return
+            del self._promoting[shard]
+            for sid in [
+                s for s, e in self.sessions.items() if e.shard == shard
+            ]:
+                e = self.sessions.pop(sid)
+                self._cells -= e.height * e.width
+                self._m_sessions_lost.inc()
+                lost += 1
+            if info.get("span") is not None:
+                info["span"].set(outcome="lost", sessions=lost).finish()
+            self._rebuild_routes_locked()
+            self._wake.set()
+        if self.events is not None:
+            self.events.emit(
+                "serve_federation_promotion_expired", shard=shard, lost=lost,
             )
 
     # -- worker re-home (SHARD_HOME) -------------------------------------------

@@ -384,6 +384,7 @@ class ServeWorkerPlane:
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
         self._inbox: deque = deque()  # graftlint: guarded-by _lock
+        self._running = False  # a frame popped and not yet run; _lock
         self._results: List[dict] = []  # graftlint: guarded-by _lock
         self._stopped = False  # graftlint: guarded-by _lock
         # Primary half of replication: per-session watermark state (acked
@@ -465,6 +466,34 @@ class ServeWorkerPlane:
         window (docs/OPERATIONS.md "Frontend scale-out & HA")."""
         return {"sessions": self.router.list()}
 
+    def discard_results(self) -> None:
+        """Drop the answers not yet sent: after a control re-home they
+        belong to the dead frontend's ops (their rids mean other ops at the
+        new frontend)."""
+        with self._lock:
+            self._results = []
+
+    def settle(self, timeout: float) -> bool:
+        """Block until every frame handed to this plane has run and every
+        job it queued on the router has landed, or ``timeout`` seconds
+        pass; True when settled.  A worker re-homing after its frontend's
+        loss settles before it announces ``home_summary``: an op the dead
+        frontend sent still lands, and the summary must count it (else the
+        adopting frontend's index, and a client reading it back, would see
+        the epoch before it)."""
+        import time
+
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._lock:
+                if not self._inbox and not self._running:
+                    break
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.01)
+        sids = [doc["id"] for doc in self.router.list()]
+        return self.router.wait_idle(sids, max(0.0, deadline - time.monotonic()))
+
     # -- executor -------------------------------------------------------------
 
     def _exec_loop(self) -> None:
@@ -480,6 +509,7 @@ class ServeWorkerPlane:
                 if self._stopped:
                     return
                 msg = self._inbox.popleft() if self._inbox else None
+                self._running = msg is not None
             try:
                 if msg is not None:
                     kind = msg.get("type")
@@ -506,6 +536,9 @@ class ServeWorkerPlane:
             except Exception as e:  # noqa: BLE001 — one bad frame must not
                 # kill the executor: every op answers, malformed ones loudly
                 print(f"serve plane: dropped bad frame: {e!r}", flush=True)
+            finally:
+                with self._lock:
+                    self._running = False
 
     def _run_op(self, op: dict) -> None:
         rid = int(op["rid"])

@@ -73,6 +73,17 @@ through its CLI:
   every op answered, promoted boards and the mega-board certified at their
   resume epochs) and another SIGTERM-drained in round 3 (exit 0, no
   admitted job lost, resident chunks re-homed digest-certified);
+- the frontend federation: three ``serve --serve-cluster on
+  --frontend-seeds`` processes at the same defaults, one ``backend --device
+  cuda`` each on card 0: they converge with no unowned slice, the 1024
+  sessions are created round-robin (each id in its frontend's slices: no
+  op forwarded) and stepped 64 epochs (every digest equal to the
+  single-process plane's), 64 of them step once through a frontend that
+  does not own them (forwarded, counted exactly, digests held), a foreign
+  GET answers 307 to the owner's HTTP port, and a frontend SIGKILLed
+  mid-round costs no session (only 200s and retryable 429s, the standby
+  adopts its slices, its worker re-homes there, every board certified at
+  epoch 128, none lost after the re-home grace);
 - the host engines: ``run --backend actor-native`` at 256² against the
   packed run's digests, and in-process clusters of ``swar`` workers at
   4096² and ``actor-native`` workers at 512² against the torch engine's;
@@ -2707,6 +2718,410 @@ def serve_cluster_phase(tmp: Path, card, single):
     )
 
 
+SF_FRONTENDS = 3
+SF_SAMPLE = 64  # the wrong-frontend burst: one epoch each through a non-owner
+SF_RETRYABLE = ("failover", "partitioned")
+# A kill-round request's client timeout: on the H100 host a request in
+# flight to the SIGKILLed frontend got no reset and waited the timeout out
+# (60 s at first); a load balancer's client gives up sooner and moves on.
+SF_REQUEST_TIMEOUT_S = 10.0
+SF_TOML = """\
+failure_timeout_s = "5s"
+wait_for_backends_s = "240s"
+rebalance_interval_s = "50ms"
+"""
+
+
+def _http_no_redirect(base, path, timeout=60):
+    """A GET whose 307 is answered, not followed: (status, body, headers)."""
+    import http.client
+    import urllib.parse
+
+    url = urllib.parse.urlsplit(base)
+    conn = http.client.HTTPConnection(url.hostname, url.port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read()
+        return resp.status, (json.loads(body) if body else {}), dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def _fed_health(base):
+    status, doc = _http(base, "GET", "/healthz", timeout=30)
+    check(status == 200, f"{base}/healthz: {status}")
+    return doc
+
+
+def _step_federated(bases, home, sid, start, target, traffic):
+    """Step ``sid`` from ``start`` to the absolute epoch ``target`` through
+    the frontend ``bases[home]``, the load balancer's client: when a
+    frontend refuses or drops the connection the client moves to another
+    and reads the epoch back before stepping on; a retryable 429
+    (``failover`` / ``partitioned``) is read back and retried.  Each 200
+    must land exactly on ``target`` from the epoch the client knew.  404s,
+    5xx and other answers are recorded, not retried."""
+    import http.client
+    import urllib.error
+
+    at, epoch, t_fail, t_429, known, gone, err = home, start, None, None, True, set(), None
+    while epoch < target:
+        if at in gone:
+            live = [i for i in range(len(bases)) if i not in gone]
+            check(bool(live), f"{sid}: no frontend answers ({err!r})")
+            at = live[(home + 1) % len(live)]
+        t_req = time.monotonic()
+        try:
+            if known:
+                status, doc = _http(bases[at], "POST", f"/boards/{sid}/step",
+                                    {"steps": target - epoch}, timeout=SF_REQUEST_TIMEOUT_S)
+            else:  # the epoch after an answer that may or may not have landed
+                status, doc, headers = _http_no_redirect(
+                    bases[at], f"/boards/{sid}", timeout=SF_REQUEST_TIMEOUT_S)
+        except (urllib.error.URLError, http.client.HTTPException, OSError) as e:
+            err = e
+            took = time.monotonic() - t_req
+            with traffic.lock:
+                traffic.errors.append((round(took, 3), sid, at, repr(e)[:120]))
+            gone.add(at)
+            known = False
+            t_fail = t_fail if t_fail is not None else t_req
+            continue
+        if status == 307:
+            # The owner's own port: it may be the frontend that just died,
+            # before this one has seen it go; then ask this one again.
+            try:
+                status, doc = _http(headers["Location"], "GET", "",
+                                    timeout=SF_REQUEST_TIMEOUT_S)
+            except (urllib.error.URLError, http.client.HTTPException, OSError) as e:
+                err = e
+                time.sleep(0.1)
+                continue
+        took = time.monotonic() - t_req
+        with traffic.lock:
+            if took > traffic.slowest[0]:
+                traffic.slowest = (took, sid, at, status, "step" if known else "get")
+        traffic.note(status)
+        if status == 200:
+            if known and doc["epoch"] != target:
+                with traffic.lock:
+                    traffic.failures.append((sid, "discontinuous", epoch, doc["epoch"]))
+                return
+            epoch, known = int(doc["epoch"]), True
+            now = time.monotonic()
+            with traffic.lock:
+                traffic.last_200 = now
+                if t_fail is not None:
+                    traffic.latency.append(now - t_fail)
+                if t_429 is not None:
+                    traffic.latency_429.append(now - t_429)
+            t_fail = t_429 = None
+            continue
+        if status == 429 and doc.get("reason") in SF_RETRYABLE:
+            t_fail = t_fail if t_fail is not None else time.monotonic()
+            t_429 = t_429 if t_429 is not None else time.monotonic()
+            known = False
+            time.sleep(float(doc.get("retry_after_s", 0.1)))
+            continue
+        if status == 429 and doc.get("reason") == "queue_full":
+            time.sleep(0.05)
+            continue
+        with traffic.lock:
+            (traffic.not_found if status == 404 else traffic.failures).append(
+                (sid, status, doc))
+        return
+
+
+def _fed_listing(bases, dead):
+    """Every live frontend's ``/boards`` (each lists its own slices)."""
+    out = {}
+    for i, base in enumerate(bases):
+        if i in dead:
+            continue
+        for row in _http(base, "GET", "/boards")[1]["boards"]:
+            check(row["id"] not in out, f"{row['id']} listed by two frontends")
+            out[row["id"]] = row
+    return out
+
+
+def serve_federation_phase(tmp: Path, card, single):
+    """The frontend federation on the card: SF_FRONTENDS ``serve
+    --serve-cluster on --frontend-seeds ...`` processes at the JAX serve
+    defaults, each with one ``backend --device cuda`` worker on card 0.
+    Round 1 creates the serve mix round-robin (each sid mined into its
+    frontend's slices, so no op is forwarded) and steps it 64 epochs from
+    sticky clients (the single-process phase's digests); a burst steps a
+    sample through frontends that do not own it (forwarded, counted
+    exactly); a foreign GET answers 307 to the owner's HTTP port; round 2
+    SIGKILLs a frontend mid-round (only 200s and retryable 429s, the
+    standby adopts the dead frontend's slices, its worker re-homes and
+    announces its sessions, every board certified at epoch 128, none
+    lost)."""
+    specs = serve_specs()
+    n_fe = SF_FRONTENDS
+    check(len(single) == len(specs), "the serve phase's digests")
+    cports = [_free_port() for _ in range(n_fe)]
+    hports = [_free_port() for _ in range(n_fe)]
+    wports = [_free_port() for _ in range(n_fe)]
+    seeds = ",".join(f"127.0.0.1:{p}" for p in cports)
+    bases = [f"http://127.0.0.1:{p}" for p in hports]
+    names = [f"127.0.0.1:{p}" for p in cports]
+    procs = {}
+    try:
+        t_boot = time.perf_counter()
+        fe_lines = {}
+        for i in range(n_fe):
+            # Each frontend's event log (promotions, SHARD_HOME, peers) lands
+            # in chiprun_out/ beside its output.
+            toml = tmp / f"serve-federation-{i}.toml"
+            toml.write_text(SF_TOML + f'log_events = "{OUT}/serve_federation_fe{i}.events.jsonl"\n')
+            procs[f"fe{i}"], fe_lines[i] = _start_proc(_port_cli(
+                "serve", "--serve-cluster", "on", "--config", str(toml), "--host", "127.0.0.1",
+                "--port", str(cports[i]), "--metrics-port", str(hports[i]), "--min-backends", "1",
+                "--frontend-seeds", seeds), f"serve_federation_fe{i}", tmp)
+        deadline = time.monotonic() + WAIT_S
+        for i in range(n_fe):
+            _await_line(fe_lines[i], r"listening on \S+:(\d+)", deadline, f"frontend {i}'s port")
+        w_lines = {}
+        for i in range(n_fe):
+            procs[f"w{i}"], w_lines[i] = _start_proc(_port_cli(
+                "backend", "--port", str(cports[i]), "--name", f"fw{i}", "--device", SC_DEVICE,
+                "--metrics-port", str(wports[i])), f"serve_federation_w{i}", tmp)
+        for i in range(n_fe):
+            _await_line(w_lines[i], r"joined", deadline, f"worker {i} joined")
+        boot_s = time.perf_counter() - t_boot
+
+        # -- convergence: every frontend sees the others and no slice unowned --
+        t0 = time.perf_counter()
+        while True:
+            docs = [_fed_health(b) for b in bases]
+            feds = [d["federation"] for d in docs]
+            if (all(len(f["peers"]) == n_fe - 1 and f["slices"]["unowned"] == 0 for f in feds)
+                    and all(f["slices"]["by_frontend"] == feds[0]["slices"]["by_frontend"]
+                            for f in feds)
+                    and all(len(d["serve"]["shards_by_worker"]) == 1 for d in docs)):
+                break
+            check(time.monotonic() < deadline, f"the federation never converged: {feds}")
+            for name, proc in procs.items():
+                check(proc.poll() is None, f"{name} exited {proc.returncode} while booting")
+            time.sleep(0.1)
+        converge_s = time.perf_counter() - t0
+        for d in docs:
+            s = d["serve"]
+            check(s["shards_total"] == 64 and s["tiled_resident"]["enabled"]
+                  and s["replication"]["enabled"], f"not the JAX defaults: {s}")
+        owned = {f["name"]: f["slices"]["owned"] for f in feds}
+        check(sorted(owned) == sorted(names) and sum(owned.values()) == 64, f"slices {owned}")
+
+        def forwarded():
+            return sum(_prom_family(_http(b, "GET", "/metrics")[1],
+                                    "gol_frontend_forwarded_ops_total") for b in live_bases())
+
+        dead = set()
+
+        def live_bases():
+            return [b for i, b in enumerate(bases) if i not in dead]
+
+        with concurrent.futures.ThreadPoolExecutor(SERVE_THREADS) as pool:
+            # -- round 1: the serve mix, round-robin, sticky clients ------------
+            home = [i % n_fe for i in range(len(specs))]
+            created, create_s, _ = _timed(pool, lambda i: _http(bases[home[i]], "POST", "/boards", {
+                "tenant": f"t{specs[i][3] % 16}", "rule": specs[i][0], "height": specs[i][1],
+                "width": specs[i][2], "seed": specs[i][3]}), range(len(specs)))
+            for status, doc in created:
+                check(status == 201, f"federated create: {status} {doc}")
+            sids = [doc["id"] for _, doc in created]
+            stepped, round1_s, lat1 = _timed(pool, lambda i: _http(
+                bases[home[i]], "POST", f"/boards/{sids[i]}/step", {"steps": SC_ROUND_EPOCHS}),
+                range(len(sids)))
+            _steps_ok(stepped, SC_ROUND_EPOCHS, "federated round 1")
+            for i, (_, doc) in enumerate(stepped):
+                check(doc["digest"] == single[i], f"federated round 1 board {i} {specs[i][:3]}: "
+                      f"{doc['digest']} != the single-process plane's {single[i]}")
+            check(forwarded() == 0, "round 1 forwarded an op: a sid outside its frontend's slices")
+            by_fe = [_fed_health(b)["serve"]["sessions"] for b in bases]
+            check(sum(by_fe) == len(sids), f"sessions per frontend {by_fe}")
+
+            # -- the wrong-frontend burst: forwarded, counted exactly -------------
+            sample = list(range(0, len(sids), len(sids) // SF_SAMPLE))[:SF_SAMPLE]
+            ref65 = dict(zip(sample, _sessions_reference([specs[i] for i in sample],
+                                                         SC_ROUND_EPOCHS + 1)))
+            fwd0 = forwarded()
+            burst, burst_s, lat_fwd = _timed(pool, lambda i: _http(
+                bases[(home[i] + 1) % n_fe], "POST", f"/boards/{sids[i]}/step", {"steps": 1}),
+                sample)
+            _steps_ok(burst, SC_ROUND_EPOCHS + 1, "forwarded burst")
+            for i, (_, doc) in zip(sample, burst):
+                check(doc["digest"] == ref65[i], f"forwarded board {i}: {doc['digest']} != {ref65[i]}")
+            fwd_n = forwarded() - fwd0
+            check(fwd_n == len(sample), f"{fwd_n} forwarded ops counted for {len(sample)}")
+
+            # -- a foreign GET: 307 to the owner's HTTP port, and it serves -------
+            i = sample[1]
+            status, doc, headers = _http_no_redirect(
+                bases[(home[i] + 1) % n_fe], f"/boards/{sids[i]}")
+            want = f"{bases[home[i]]}/boards/{sids[i]}"
+            check(status == 307 and headers.get("Location") == want,
+                  f"foreign GET: {status} {headers.get('Location')} (want 307 {want})")
+            status, got = _http(want, "GET", "")
+            check(status == 200 and got["id"] == sids[i] and got["epoch"] == SC_ROUND_EPOCHS + 1
+                  and got["digest"] == ref65[i], f"the redirect's target: {status} {got}")
+
+            # -- round 2: SIGKILL a frontend mid-round ----------------------------
+            ref128 = _sessions_reference(specs, 2 * SC_ROUND_EPOCHS)
+            victim = 0
+            victim_slices = owned[names[victim]]
+            promos0 = {j: _prom_family(_http(b, "GET", "/metrics")[1],
+                                       "gol_frontend_slice_promotions_total")
+                       for j, b in enumerate(bases) if j != victim}
+            traffic = _Traffic()
+            traffic.slowest = (0.0,)
+            traffic.latency_429 = []
+            traffic.errors = []
+            kill_t = {}
+
+            survivors = [b for j, b in enumerate(bases) if j != victim]
+            seen = {}
+
+            def monitor():
+                # From the kill: when the survivors' windows are all closed,
+                # and when the orphaned worker's re-home line appears.
+                while "windows" not in seen:
+                    docs = [_fed_health(b) for b in survivors]
+                    if all(names[victim] in d["federation"]["dead"] for d in docs) and all(
+                            d["serve"]["replication"]["promotions_inflight"] == 0 for d in docs):
+                        seen["windows"] = time.monotonic() - kill_t["t"]
+                    time.sleep(0.05)
+
+            def rehomed():
+                m = _await_line(w_lines[victim], r"re-homed control channel to (\S+)",
+                                time.monotonic() + WAIT_S, "the orphaned worker's re-home")
+                seen["rehome"] = (time.monotonic() - kill_t["t"], m.group(1))
+
+            def kill():
+                kill_t["t"] = time.monotonic()
+                procs[f"fe{victim}"].kill()
+                for fn in (monitor, rehomed):
+                    threading.Thread(target=fn, daemon=True).start()
+
+            fired = threading.Event()
+
+            def watch():
+                while not fired.is_set():
+                    with traffic.lock:
+                        due = traffic.answered >= len(sids) // 3
+                    if due:
+                        kill()
+                        fired.set()
+                    time.sleep(0.01)
+
+            starts = [SC_ROUND_EPOCHS + (i in ref65) for i in range(len(sids))]
+            watcher = threading.Thread(target=watch, daemon=True)
+            t0 = time.perf_counter()
+            watcher.start()
+            list(pool.map(lambda i: _step_federated(
+                bases, home[i], sids[i], starts[i], 2 * SC_ROUND_EPOCHS, traffic),
+                range(len(sids))))
+            round2_s = time.perf_counter() - t0
+            check(fired.is_set(), f"round 2 ended before the kill ({traffic.answered} answers)")
+            procs[f"fe{victim}"].wait(timeout=30)
+            dead.add(victim)
+            check(not traffic.not_found, f"404 on admitted sessions: {traffic.not_found[:3]}")
+            check(not traffic.failures, f"round 2 failures: {traffic.failures[:3]}")
+            check(set(traffic.status) <= {200, 429}, f"round 2 answers {traffic.status}")
+
+            # The windows close by SHARD_HOME, the grace expires with no loss.
+            deadline = time.monotonic() + WAIT_S
+            while not ("windows" in seen and all(
+                    _fed_health(b)["federation"]["promotions_inflight"] == 0 for b in survivors)):
+                check(time.monotonic() < deadline, f"the federation promotions never settled: {seen}")
+                time.sleep(0.2)
+            windows_s = seen["windows"]
+            grace = max(10.0, 6.0 * 3.0)
+            check(windows_s < grace, f"the windows closed {windows_s} s after the kill, "
+                  f"past the re-home grace of {grace} s (round 2 {round2_s} s, "
+                  f"answers {traffic.status}, slowest request {traffic.slowest}, {seen})")
+            listed = _fed_listing(bases, dead)
+            check(len(listed) == len(sids), f"{len(listed)} sessions listed after the kill")
+            for i, sid in enumerate(sids):
+                row = listed[sid]
+                check(row["epoch"] == 2 * SC_ROUND_EPOCHS and row["digest"] == ref128[i],
+                      f"board {i} after the kill: {row}")
+            metrics = {j: _http(b, "GET", "/metrics")[1]
+                       for j, b in enumerate(bases) if j not in dead}
+            promoted = {names[j]: _prom_family(m, "gol_frontend_slice_promotions_total")
+                        - promos0[j] for j, m in metrics.items()}
+            check(sum(promoted.values()) == victim_slices,
+                  f"slices promoted {promoted}, the victim owned {victim_slices}")
+            check(sum(_prom_family(m, "gol_serve_sessions_lost_total")
+                      for m in metrics.values()) == 0, "sessions lost")
+            feds = [_fed_health(b)["federation"] for b in survivors]
+            check(all(f["slices"]["unowned"] == 0 and names[victim] in f["dead"] for f in feds),
+                  f"after the kill: {feds}")
+            check("rehome" in seen, "the orphaned worker never re-homed")
+            standby = max(promoted, key=promoted.get)
+            check(seen["rehome"][1] == standby,
+                  f"the orphaned worker re-homed to {seen['rehome'][1]}, the standby is {standby}")
+            # The victim's clients lost their frontend mid-round: each saw a
+            # refused or dropped connection, or a 429, before its next 200.
+            lat = sorted(traffic.latency)
+            check(lat, f"no client saw the failover ({traffic.status}, {seen})")
+            lat429 = sorted(traffic.latency_429)
+            # The standby's windows, on its own clock: adopted (the
+            # promotion event) to closed (the worker's SHARD_HOME).
+            events = [json.loads(line) for line in open(
+                OUT / f"serve_federation_fe{names.index(standby)}.events.jsonl")]
+            t_adopt = [e["t_mono"] for e in events if e["event"] == "serve_federation_promotion"]
+            t_home = [e["t_mono"] for e in events if e["event"] == "serve_shard_home"]
+            check(t_adopt and t_home, "the standby logged no adoption or no SHARD_HOME")
+            window_s = t_home[0] - t_adopt[0]
+            for j in range(n_fe):  # every worker stepped on the card
+                text = _http(f"http://127.0.0.1:{wports[j]}", "GET", "/metrics")[1]
+                check(_prom_label(text, "gol_device_peak_bytes_in_use", "device", "cuda:0") > 0
+                      if SC_DEVICE.startswith("cuda") else True,
+                      f"worker {j} holds nothing on the card")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=30)
+    def quantiles(xs):
+        return {"p50_s": xs[len(xs) // 2] if xs else None,
+                "p99_s": xs[int(len(xs) * 0.99)] if xs else None, "n": len(xs)}
+
+    promo, promo429, fwd = quantiles(lat), quantiles(lat429), quantiles(lat_fwd)
+    print(f"serve_federation: boot {boot_s:.3f} s, convergence {converge_s:.3f} s, round 1 "
+          f"{len(sids) / round1_s:.1f} boards/s, forwarded op p50 {fwd['p50_s']:.4f} s p99 "
+          f"{fwd['p99_s']:.4f} s, failover (client: first failed request to the next 200) "
+          f"p50 {promo['p50_s']:.3f} s p99 {promo['p99_s']:.3f} s over {promo['n']}, "
+          f"first 429 to the next 200 over {promo429['n']}: p50 {promo429['p50_s']} s "
+          f"p99 {promo429['p99_s']} s, the standby's windows open {window_s:.4f} s; "
+          f"{card['name_power']}", flush=True)
+    emit(
+        "serve_federation",
+        config=f"{n_fe} x serve --serve-cluster on --frontend-seeds (all three) + one backend "
+        f"--device {SC_DEVICE} each, on card 0 (JAX defaults: 64 shards, resident tiles and "
+        "replication on; gossip 0.5 s, suspect 3 s, replication 0.25 s)",
+        sessions=len(specs), boot_s=boot_s, converge_s=converge_s, slices_owned=owned,
+        create_s=create_s, round1_s=round1_s, round1_boards_per_s=len(sids) / round1_s,
+        round1_client_p50_s=lat1[len(lat1) // 2], round1_client_p99_s=lat1[int(len(lat1) * 0.99)],
+        sessions_by_frontend=by_fe, forwarded_ops=fwd_n, forwarded_burst_s=burst_s,
+        forwarded_latency=fwd, redirect={"status": 307, "location": want},
+        kill={"frontend": names[victim], "slices": victim_slices, "round_s": round2_s,
+              "answers": traffic.status, "failover_latency": promo,
+              "promotion_latency_429": promo429, "standby_window_s": window_s,
+              "windows_closed_s": windows_s, "slices_promoted": promoted,
+              "rehomed_to": seen["rehome"][1], "rehome_s": seen["rehome"][0],
+              "slowest_request": traffic.slowest, "not_found": len(traffic.not_found),
+              "last_200_after_kill_s": traffic.last_200 - kill_t["t"],
+              "connection_errors": len(traffic.errors),
+              "timed_out": sum(1 for e in traffic.errors if "timed out" in e[3]),
+              "slowest_errors": sorted(traffic.errors, reverse=True)[:3]},
+        card=card["name_power"],
+    )
+
+
 def _harness_run(config, engine, device=None):
     from akka_game_of_life_tpu_torch.runtime.harness import ClusterHarness
 
@@ -3472,6 +3887,7 @@ def main() -> int:
         # package's is XLA), so they add no line to the kernels table.
         round1 = phase("serve", serve_phase, tmp, card)
         phase("serve_cluster", serve_cluster_phase, tmp, card, round1)
+        phase("serve_federation", serve_federation_phase, tmp, card, round1)
         phase("serve_memo", memo_phase, card)
         phase("serve_canary", canary_phase, tmp, card)
         phase("host_engines", host_engines_phase, card)

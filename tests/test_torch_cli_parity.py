@@ -9,14 +9,15 @@ Then the flags the port added for keys it honours reach the config.
 """
 
 import argparse
+import dataclasses
 
 import pytest
 
 from akka_game_of_life_tpu.cli import main as jmain
+from akka_game_of_life_tpu.runtime.config import load_config as jload
 from akka_game_of_life_tpu_torch import cli as tcli
 from akka_game_of_life_tpu_torch.runtime.config import load_config
 
-_NOT_PORTED = "not ported yet (ROADMAP queue 1)"
 # Deliberate refusals, by role: option string -> reason.
 REFUSED = {
     "run": {
@@ -25,13 +26,9 @@ REFUSED = {
     },
 }
 REFUSED["frontend"] = {
-    **{k: v for k, v in REFUSED["run"].items() if k != "--sparse-cluster"},
-    "--frontend-*": f"the frontends' federation: {_NOT_PORTED}",
+    k: v for k, v in REFUSED["run"].items() if k != "--sparse-cluster"
 }
-REFUSED["serve"] = {
-    "--platform": REFUSED["run"]["--platform"],
-    "--frontend-*": REFUSED["frontend"]["--frontend-*"],
-}
+REFUSED["serve"] = {"--platform": REFUSED["run"]["--platform"]}
 SAMPLES = {"--mesh": "1x1", "--tick": "10ms", "--probe-window": "0:2,0:2"}
 
 
@@ -221,8 +218,10 @@ def test_every_serve_flag_maps_to_config():
 
 
 def test_serve_refuses_the_cluster_and_federation_by_name():
-    """The serving cluster is ported (``--serve-cluster on`` loads, from
-    ``serve`` and from ``frontend``); the federation stays refused by name."""
+    """The serving cluster and its federation are ported: ``--serve-cluster
+    on`` and the ``--frontend-*`` flags load, from ``serve`` and from
+    ``frontend``, to the JAX package's values (the name dates from when
+    the port refused them)."""
     role = _subparser(tcli.main, "serve")
     cfg = load_config(None, tcli._serve_overrides(role.parse_args(["--serve-cluster", "on"])))
     assert cfg.serve_cluster and cfg.serve_tiled_resident and cfg.serve_replicate
@@ -231,8 +230,27 @@ def test_serve_refuses_the_cluster_and_federation_by_name():
     )
     cfg = load_config(None, tcli._frontend_overrides(fe))
     assert (cfg.serve_cluster, cfg.serve_shards, cfg.serve_replicate) == (True, 8, False)
-    with pytest.raises(ValueError, match="frontend federation"):
-        load_config(None, {"frontend_seeds": "127.0.0.1:9000"})
+    argv = [
+        "--serve-cluster", "on", "--frontend-seeds", "127.0.0.1:9000,h:9001",
+        "--frontend-advertise", "127.0.0.1:9000",
+        "--frontend-gossip-interval-s", "200ms", "--frontend-gossip-timeout-s", "2s",
+        "--frontend-replicate-every", "4", "--frontend-replicate-interval-s", "0.1",
+    ]
+    want = jload(None, {
+        "frontend_seeds": "127.0.0.1:9000,h:9001", "frontend_advertise": "127.0.0.1:9000",
+        "frontend_gossip_interval_s": "200ms", "frontend_gossip_timeout_s": "2s",
+        "frontend_replicate_every": 4, "frontend_replicate_interval_s": 0.1,
+    })
+    for cfg in (
+        load_config(None, {**tcli._serve_overrides(role.parse_args(argv)),
+                           **tcli._federation_overrides(role.parse_args(argv))}),
+        load_config(None, tcli._frontend_overrides(
+            _subparser(tcli.main, "frontend").parse_args(argv))),
+    ):
+        for f in dataclasses.fields(cfg):
+            if f.name.startswith("frontend_"):
+                assert getattr(cfg, f.name) == getattr(want, f.name), f.name
+        assert cfg.frontend_gossip_interval_s == 0.2
     # Without the switch the cluster-only knobs parse, validate and stay
     # inert, as in the JAX package.
     cfg = load_config(None, tcli._serve_overrides(role.parse_args(["--serve-shards", "8"])))

@@ -225,10 +225,11 @@ def test_cluster_keys_load_like_jax(tmp_path):
 )
 def test_unported_keys_refused_by_name(key, value):
     if key in ("coordinator_address", "num_processes", "distributed", "process_id",
-               "serve_max_sessions", "serve_memo", "backend", "serve_cluster"):
-        # The multi-process run, the serving plane (single-process and
-        # cluster) and the actor engines are ported: the key loads as the
-        # JAX package loads it (the federation stays refused).
+               "serve_max_sessions", "serve_memo", "backend", "serve_cluster",
+               "frontend_seeds"):
+        # The multi-process run, the serving plane (single-process,
+        # cluster and federation) and the actor engines are ported: the
+        # key loads as the JAX package loads it.
         assert getattr(tload(None, {key: value}), key) == getattr(jload(None, {key: value}), key)
         return
     with pytest.raises(ValueError, match=key):
