@@ -396,8 +396,11 @@ def _np_chunk(padded: np.ndarray, steps: int, halo: int, rule: Rule) -> np.ndarr
 # zero added latency — and even a wedged batch self-heals through the
 # receiver's PEER_PULL re-asks (our rings are always in our local store).
 _RING_LINGER_S = 0.02
-# How long a federated worker whose frontend died tries its fallbacks
-# before the loss is an ordinary disconnect.
+# How long a federated worker whose frontend died waits for that
+# frontend's last ops to land before it announces its sessions, and then
+# how long it tries its fallbacks before the loss is an ordinary
+# disconnect.  Two bounds: a slow settle never eats the dialing.
+REHOME_SETTLE_S = 5.0
 REHOME_TIMEOUT_S = 15.0
 
 
@@ -861,13 +864,6 @@ class BackendWorker:
         # The federation's re-home targets (peer frontends' listeners):
         # from WELCOME, refreshed by FED_PEERS; empty outside a federation.
         self._federation_fallbacks: List[Tuple[str, int]] = []
-        # Notified when the control channel is swapped by a re-home, or
-        # when a re-home gave up (_rehome_failed).
-        self._home_cv = threading.Condition()
-        self._rehome_failed = False
-        # Control frames read (by the reader) and dispatched (by run()).
-        self._received = 0
-        self._dispatched = 0
         self._reader: Optional[threading.Thread] = None
         self._step_chunk: Optional[Callable[[np.ndarray, int, int], np.ndarray]] = None
         self._actor_engines: Dict[TileId, object] = {}
@@ -1042,8 +1038,12 @@ class BackendWorker:
                 if msg is None:
                     self.stopped_reason = self.stopped_reason or "disconnected"
                     break
+                if isinstance(msg, threading.Event):
+                    # A re-home's settle barrier (_settle): on to the serve
+                    # plane's FIFO, behind every frame dispatched before it.
+                    self.serve_plane.barrier(msg)
+                    continue
                 self._dispatch(msg)
-                self._dispatched += 1
             self._stop.set()
         except (OSError, ValueError) as e:
             # ValueError = a malformed frame from wire.recv (bad magic,
@@ -1077,18 +1077,15 @@ class BackendWorker:
         """Late-bound control-channel send: reads ``self.channel`` at call
         time, so the serve plane's bound sender follows a re-home.  A frame
         that meets the dead channel of a federated worker was its dead
-        frontend's (a result, a replication pass): it waits for the
-        reader's re-home and is dropped, so the serve plane's threads live
-        on; it raises only when the re-home fails (the threads then stop,
-        as on any dead control channel).  Sent to the new frontend, a
-        result would answer whatever op of its own bears the same rid."""
-        channel = self.channel
+        frontend's (a result, a shard reply, a replication pass): it is
+        dropped at once, so the serve plane's threads live on and never
+        wait on the re-home.  Sent to the new frontend, a result would
+        answer whatever op of its own bears the same rid."""
         try:
-            channel.send(msg)
+            self.channel.send(msg)
         except OSError:
             if not self._rehomable():
                 raise
-            self._await_rehome(channel)
 
     def _rehomable(self) -> bool:
         return (
@@ -1097,38 +1094,43 @@ class BackendWorker:
             and bool(self._federation_fallbacks)
         )
 
-    def _await_rehome(self, dead: Channel) -> None:
-        """Wait until a re-home replaces ``dead``; raises ConnectionError
-        when the re-home gave up or did not land within its bound."""
-        deadline = time.monotonic() + REHOME_TIMEOUT_S + 5.0
-        with self._home_cv:
-            while self.channel is dead:
-                left = deadline - time.monotonic()
-                if self._rehome_failed or self._stop.is_set() or left <= 0:
-                    raise ConnectionError(
-                        "control channel lost and the re-home failed"
-                    )
-                self._home_cv.wait(left)
+    def _settle(self, timeout: float) -> bool:
+        """Let every frame the lost frontend sent run before the worker
+        announces its sessions: a barrier queued behind them through run()'s
+        dispatch loop and on through the serve plane's FIFO, then the
+        router jobs they queued.  The results they produce are the dead
+        frontend's and are dropped.  True when all of it landed within
+        ``timeout`` seconds."""
+        deadline = time.monotonic() + timeout
+        done = threading.Event()
+        self._inbox.put(done)
+        settled = done.wait(timeout) and self.serve_plane.settle(
+            max(0.0, deadline - time.monotonic())
+        )
+        self.serve_plane.discard_results()
+        return settled
 
     def _rehome(self) -> bool:
         """The control channel ended in a FEDERATED cluster: let the dead
-        frontend's last ops land, dial a peer frontend from the fallbacks,
-        register under the SAME name (the sessions live in this process,
-        nothing is lost), announce the hosted sessions with ``SHARD_HOME``
-        so the adopting frontend closes its failover windows, then swap
-        the channel.  True when the worker is homed anew; False is an
-        ordinary disconnect (not federated, stopping, or no fallback
-        answered within ``REHOME_TIMEOUT_S``)."""
+        frontend's last ops land (:meth:`_settle`, its own bound), dial a
+        peer frontend from the fallbacks, register under the SAME name
+        (the sessions live in this process, nothing is lost), announce the
+        hosted sessions with ``SHARD_HOME`` so the adopting frontend closes
+        its failover windows, then swap the channel.  True when the worker
+        is homed anew; False is an ordinary disconnect (not federated,
+        stopping, or no fallback answered within ``REHOME_TIMEOUT_S``)."""
         if not self._rehomable():
             return False
+        if not self._settle(REHOME_SETTLE_S):
+            # Re-home all the same: a late op is missing from SHARD_HOME,
+            # where giving up would lose every session this worker holds.
+            print(
+                f"worker {self.name}: the lost frontend's ops did not land "
+                f"within {REHOME_SETTLE_S:g}s; announcing the sessions as "
+                f"they stand",
+                flush=True,
+            )
         deadline = time.monotonic() + REHOME_TIMEOUT_S
-        # Settle first: every frame the dead frontend sent is dispatched and
-        # run, so the session truth announced below counts its ops.
-        while self._dispatched < self._received and time.monotonic() < deadline:
-            time.sleep(0.01)
-        self.serve_plane.settle(max(0.0, deadline - time.monotonic()))
-        # Their answers were the dead frontend's (see _control_send).
-        self.serve_plane.discard_results()
         while time.monotonic() < deadline and not self._stop.is_set():
             for host, port in list(self._federation_fallbacks):
                 if (host, port) == (self.host, self.port):
@@ -1159,15 +1161,12 @@ class BackendWorker:
                     })
                 except (OSError, ValueError):
                     continue
-                old = self.channel
-                with self._home_cv:
-                    self.channel = channel
-                    self.host, self.port = host, port
-                    self._federation_fallbacks = (
-                        _fallbacks(welcome.get("federation"))
-                        or self._federation_fallbacks
-                    )
-                    self._home_cv.notify_all()
+                old, self.channel = self.channel, channel
+                self.host, self.port = host, port
+                self._federation_fallbacks = (
+                    _fallbacks(welcome.get("federation"))
+                    or self._federation_fallbacks
+                )
                 try:
                     old.close()
                 except OSError:
@@ -1201,22 +1200,14 @@ class BackendWorker:
             except Exception as e:  # noqa: BLE001 — run() raises it
                 if isinstance(e, (OSError, ValueError)) and self._rehome():
                     continue
-                self._give_up_rehome()
                 self._inbox.put(e)
                 return
             if msg is None:
                 if self._rehome():
                     continue
-                self._give_up_rehome()
                 self._inbox.put(None)
                 return
-            self._received += 1
             self._inbox.put(msg)
-
-    def _give_up_rehome(self) -> None:
-        with self._home_cv:
-            self._rehome_failed = True
-            self._home_cv.notify_all()
 
     def _run_pre_stop_hooks(self) -> None:
         with self._pre_stop_lock:
@@ -1544,7 +1535,7 @@ class BackendWorker:
                 # A federated worker may be mid-re-home: this one loop
                 # lives on (it reads self.channel at every send, so it
                 # follows the swap).
-                if self._rehomable() and not self._rehome_failed:
+                if self._rehomable():
                     continue
                 return
 

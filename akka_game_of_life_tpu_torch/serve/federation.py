@@ -34,8 +34,9 @@ workers re-home their control channel to a peer from their ``FED_PEERS``
 list and announce their sessions with ``SHARD_HOME``, which closes the
 window with no admitted session lost.
 
-Six changes from the JAX module, each with its test (the frames and the
-placement functions stay the JAX module's, so mixed fleets agree):
+Seven changes from the JAX module and its worker's re-home, each with its
+test (the frames and the placement functions stay the JAX module's, so
+mixed fleets agree; ROADMAP's queue 3 lists the same seven):
 
 - The standby installs a dead peer's rows and opens their windows under
   the same lock hold that moves the peer's slices to it.  The JAX module
@@ -63,10 +64,14 @@ placement functions stay the JAX module's, so mixed fleets agree):
   creates to the peer owning most slices (:meth:`FederationPlane._sid_host`);
   the JAX module refuses them with a 429 for as long as it lives.
 - A worker that re-homes first lets the ops its dead frontend sent land
-  (``runtime/backend.py``, ``ServeWorkerPlane.settle``), so its
-  ``SHARD_HOME`` counts them; the JAX worker announces the sessions as
-  they stand, and a client reading an epoch back after the failover may
-  step a second time.
+  (``BackendWorker._settle``: a barrier through its dispatch loop and the
+  serve plane's FIFO, then the router's jobs), so its ``SHARD_HOME``
+  counts them; the JAX worker announces the sessions as they stand, and a
+  client reading an epoch back after the failover may step a second time.
+- The answers to the dead frontend's ops are dropped at the re-home
+  (``ServeWorkerPlane.discard_results``), where the JAX worker sends them
+  to the new frontend after the swap, and there a result's rid names
+  another op.
 """
 
 from __future__ import annotations

@@ -384,8 +384,11 @@ class ServeWorkerPlane:
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
         self._inbox: deque = deque()  # graftlint: guarded-by _lock
-        self._running = False  # a frame popped and not yet run; _lock
         self._results: List[dict] = []  # graftlint: guarded-by _lock
+        # Held by the reply thread from taking a batch to sending it, so a
+        # re-home's discard_results leaves no batch of the dead frontend's
+        # still on its way.
+        self._reply_lock = threading.Lock()
         self._stopped = False  # graftlint: guarded-by _lock
         # Primary half of replication: per-session watermark state (acked
         # epoch, last streamed epoch/time, last pass's epoch for the
@@ -466,33 +469,34 @@ class ServeWorkerPlane:
         window (docs/OPERATIONS.md "Frontend scale-out & HA")."""
         return {"sessions": self.router.list()}
 
+    def barrier(self, done: threading.Event) -> None:
+        """Queue ``done`` behind every frame handed so far.  The executor
+        sets it once they have run, after it thaws the shards of any
+        migration still open: a worker re-homing after its frontend's loss
+        waits for it, and the dead frontend can no longer commit or abort
+        what it prepared."""
+        with self._lock:
+            if self._stopped:
+                done.set()
+                return
+            self._inbox.append(done)
+            self._work.notify_all()
+
+    def settle(self, timeout: float) -> bool:
+        """Block until every job queued on the router has landed, or
+        ``timeout`` seconds pass; True when settled.  After :meth:`barrier`,
+        a re-homing worker's ``home_summary`` then counts every op its dead
+        frontend sent (else the adopting frontend's index, and a client
+        reading it back, would see the epoch before it)."""
+        sids = [doc["id"] for doc in self.router.list()]
+        return self.router.wait_idle(sids, timeout)
+
     def discard_results(self) -> None:
         """Drop the answers not yet sent: after a control re-home they
         belong to the dead frontend's ops (their rids mean other ops at the
         new frontend)."""
-        with self._lock:
+        with self._reply_lock, self._lock:
             self._results = []
-
-    def settle(self, timeout: float) -> bool:
-        """Block until every frame handed to this plane has run and every
-        job it queued on the router has landed, or ``timeout`` seconds
-        pass; True when settled.  A worker re-homing after its frontend's
-        loss settles before it announces ``home_summary``: an op the dead
-        frontend sent still lands, and the summary must count it (else the
-        adopting frontend's index, and a client reading it back, would see
-        the epoch before it)."""
-        import time
-
-        deadline = time.monotonic() + timeout
-        while True:
-            with self._lock:
-                if not self._inbox and not self._running:
-                    break
-            if time.monotonic() >= deadline:
-                return False
-            time.sleep(0.01)
-        sids = [doc["id"] for doc in self.router.list()]
-        return self.router.wait_idle(sids, max(0.0, deadline - time.monotonic()))
 
     # -- executor -------------------------------------------------------------
 
@@ -509,9 +513,15 @@ class ServeWorkerPlane:
                 if self._stopped:
                     return
                 msg = self._inbox.popleft() if self._inbox else None
-                self._running = msg is not None
             try:
-                if msg is not None:
+                if isinstance(msg, threading.Event):
+                    try:
+                        for sids in self._shard_frozen.values():
+                            self.router.unfreeze_sessions(sids)
+                        self._shard_frozen.clear()
+                    finally:
+                        msg.set()
+                elif msg is not None:
                     kind = msg.get("type")
                     if kind == P.SERVE_OPS:
                         for op in msg.get("ops", []):
@@ -536,9 +546,6 @@ class ServeWorkerPlane:
             except Exception as e:  # noqa: BLE001 — one bad frame must not
                 # kill the executor: every op answers, malformed ones loudly
                 print(f"serve plane: dropped bad frame: {e!r}", flush=True)
-            finally:
-                with self._lock:
-                    self._running = False
 
     def _run_op(self, op: dict) -> None:
         rid = int(op["rid"])
@@ -1542,15 +1549,19 @@ class ServeWorkerPlane:
                     self._work.wait(timeout=0.25)
                 if self._stopped:
                     return
-                batch, self._results = self._results, []
             # One frame per flush: results that accumulate while this
             # send is on the wire coalesce into the next frame.
-            try:
-                self._send({"type": P.SERVE_RESULT, "results": batch})
-            except (OSError, ValueError):
-                # Dead control channel — nothing to answer to; the
-                # frontend's member-loss path fails the in-flight ops.
-                return
+            with self._reply_lock:
+                with self._lock:
+                    batch, self._results = self._results, []
+                if not batch:
+                    continue  # discarded by a re-home meanwhile
+                try:
+                    self._send({"type": P.SERVE_RESULT, "results": batch})
+                except (OSError, ValueError):
+                    # Dead control channel — nothing to answer to; the
+                    # frontend's member-loss path fails the in-flight ops.
+                    return
 
     def close(self) -> None:
         with self._lock:

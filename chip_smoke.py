@@ -2761,7 +2761,10 @@ def _step_federated(bases, home, sid, start, target, traffic):
     and reads the epoch back before stepping on; a retryable 429
     (``failover`` / ``partitioned``) is read back and retried.  Each 200
     must land exactly on ``target`` from the epoch the client knew.  404s,
-    5xx and other answers are recorded, not retried."""
+    5xx and other answers are recorded, not retried.  Every connection
+    error and timeout is recorded with the frontend it came from and its
+    time, a 307's target included, for the phase to hold them to the
+    killed frontend after the kill."""
     import http.client
     import urllib.error
 
@@ -2781,9 +2784,9 @@ def _step_federated(bases, home, sid, start, target, traffic):
                     bases[at], f"/boards/{sid}", timeout=SF_REQUEST_TIMEOUT_S)
         except (urllib.error.URLError, http.client.HTTPException, OSError) as e:
             err = e
-            took = time.monotonic() - t_req
+            now = time.monotonic()
             with traffic.lock:
-                traffic.errors.append((round(took, 3), sid, at, repr(e)[:120]))
+                traffic.errors.append((round(now - t_req, 3), sid, at, now, repr(e)[:120]))
             gone.add(at)
             known = False
             t_fail = t_fail if t_fail is not None else t_req
@@ -2791,11 +2794,19 @@ def _step_federated(bases, home, sid, start, target, traffic):
         if status == 307:
             # The owner's own port: it may be the frontend that just died,
             # before this one has seen it go; then ask this one again.
+            owner = next((j for j, b in enumerate(bases)
+                          if headers.get("Location", "").startswith(b + "/")), None)
+            check(owner is not None, f"{sid}: a 307 to {headers.get('Location')}, "
+                  "no frontend's HTTP port")
             try:
                 status, doc = _http(headers["Location"], "GET", "",
                                     timeout=SF_REQUEST_TIMEOUT_S)
             except (urllib.error.URLError, http.client.HTTPException, OSError) as e:
                 err = e
+                now = time.monotonic()
+                with traffic.lock:
+                    traffic.errors.append(
+                        (round(now - t_req, 3), sid, owner, now, repr(e)[:120]))
                 time.sleep(0.1)
                 continue
         took = time.monotonic() - t_req
@@ -3030,6 +3041,11 @@ def serve_federation_phase(tmp: Path, card, single):
             check(not traffic.not_found, f"404 on admitted sessions: {traffic.not_found[:3]}")
             check(not traffic.failures, f"round 2 failures: {traffic.failures[:3]}")
             check(set(traffic.status) <= {200, 429}, f"round 2 answers {traffic.status}")
+            # A survivor that hangs or refuses a client fails the round: only
+            # the killed frontend may drop a connection, and only after the kill.
+            stray = [e for e in traffic.errors if e[2] != victim or e[3] < kill_t["t"]]
+            check(not stray, f"connection errors not from the killed frontend after "
+                  f"the kill: {len(stray)}, e.g. {stray[:3]}")
 
             # The windows close by SHARD_HOME, the grace expires with no loss.
             deadline = time.monotonic() + WAIT_S
@@ -3116,7 +3132,7 @@ def serve_federation_phase(tmp: Path, card, single):
               "slowest_request": traffic.slowest, "not_found": len(traffic.not_found),
               "last_200_after_kill_s": traffic.last_200 - kill_t["t"],
               "connection_errors": len(traffic.errors),
-              "timed_out": sum(1 for e in traffic.errors if "timed out" in e[3]),
+              "timed_out": sum(1 for e in traffic.errors if "timed out" in e[4]),
               "slowest_errors": sorted(traffic.errors, reverse=True)[:3]},
         card=card["name_power"],
     )

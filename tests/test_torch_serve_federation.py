@@ -37,6 +37,7 @@ import akka_game_of_life_tpu_torch.serve.cluster as t_cluster
 import akka_game_of_life_tpu_torch.serve.federation as t_fed
 from _torch_serve_cluster import PKGS, oracle_digest
 from akka_game_of_life_tpu.runtime import wire as j_wire
+from akka_game_of_life_tpu_torch.runtime import protocol as P
 from akka_game_of_life_tpu_torch.runtime import wire as t_wire
 from akka_game_of_life_tpu_torch.serve.federation import FederationRedirect
 from akka_game_of_life_tpu_torch.serve.sessions import AdmissionError, shard_of
@@ -540,14 +541,14 @@ def test_foreign_get_redirects_local_get_serves():
 
 def test_control_send_racing_the_rehome_is_dropped_not_raised():
     """A serve frame that meets the dead channel of a federated worker was
-    its dead frontend's: it waits for the re-home and is dropped, not
-    raised (the worker's reply and replication threads outlive the swap)
-    and not resent (a result would answer whatever op of the new frontend
-    bears its rid)."""
+    its dead frontend's: it is dropped at once, not raised (the worker's
+    reply and replication threads outlive the swap), not held until the
+    swap (the re-home's settle waits for the thread that sends it) and not
+    resent (a result would answer whatever op of the new frontend bears
+    its rid)."""
     with federation(2) as (fes, workers, ports, seeds):
         w = workers[1]
         live = w.channel
-        done = []
 
         class _Dead:
             def send(self, msg):
@@ -560,23 +561,66 @@ def test_control_send_racing_the_rehome_is_dropped_not_raised():
             def send(self, msg):
                 self.sent.append(msg)
 
-        w.channel = _Dead()
-        t = threading.Thread(
-            target=lambda: done.append(w._control_send({"type": "serve_result"})),
-            daemon=True,
-        )
-        t.start()
-        time.sleep(0.2)
-        assert t.is_alive()  # waiting for the swap, not raised
-        new = _New()
-        with w._home_cv:
+        try:
+            w.channel = _Dead()
+            t0 = time.monotonic()
+            assert w._control_send({"type": "serve_result"}) is None
+            assert time.monotonic() - t0 < 1.0
+            new = _New()
             w.channel = new
-            w._home_cv.notify_all()
-        t.join(10)
-        assert done == [None]
-        assert [m for m in new.sent if m["type"] == "serve_result"] == []
-        with w._home_cv:
+            time.sleep(0.3)
+            assert [m for m in new.sent if m["type"] == "serve_result"] == []
+        finally:
             w.channel = live
+
+
+def test_frontend_killed_during_a_shard_prepare_rehomes_zero_loss():
+    """B dies while its worker runs a SHARD_PREPARE.  The prepare's reply
+    meets the dead channel and is dropped without waiting for the re-home,
+    so the re-home's settle, queued behind it, passes; the worker thaws the
+    shard B can no longer commit or abort, re-homes to A, and its
+    SHARD_HOME closes the window: the session steps on at a continuous
+    epoch with the oracle's digest, and none is lost."""
+    with federation(2) as (fes, workers, ports, seeds):
+        a, b = fes
+        w = workers[1]
+        sid = _sid_owned_by(b.federation, b.federation.name, "prep")
+        b.federation.router.create(sid=sid, height=24, width=24, seed=5)
+        b.federation.router.step(sid, 3)
+        _wait(lambda: a.federation.health()["replicated_rows_held"].get(
+            b.federation.name, 0) >= 1, "the standby to hold the row")
+        plane = w.serve_plane
+        real, reached, crashed = (
+            plane._on_prepare, threading.Event(), threading.Event(),
+        )
+
+        def held_prepare(msg):
+            reached.set()
+            assert crashed.wait(10)
+            # Past two heartbeats: the dead channel has drawn its reset, so
+            # the reply's send fails rather than filling a socket buffer.
+            time.sleep(1.2)
+            return real(msg)
+
+        plane._on_prepare = held_prepare
+        with b.serve_plane._lock:
+            b.serve_plane._enqueue_ctrl_locked(w.name, {
+                "type": P.SHARD_PREPARE, "shard": shard_of(sid, N_SHARDS),
+                "seq": 1,
+            })
+        assert reached.wait(10)
+        _crash(b)
+        crashed.set()
+        _wait(
+            lambda: w.name in {m.name for m in a.membership.alive_members()}
+            and not a.serve_plane._promoting,
+            "the worker's SHARD_HOME at A", timeout=30.0,
+        )
+        assert _step_until_owned(a.federation.router, sid) == 4
+        got = a.federation.router.get(sid)
+        assert got["digest"] == oracle_digest("conway", (24, 24), 5, 4)
+        snap = a.metrics.snapshot()
+        assert (snap.get("gol_serve_sessions_lost_total") or 0) == 0
 
 
 # -- parity with the JAX package on the same inputs --------------------------------
