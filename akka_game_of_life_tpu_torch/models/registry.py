@@ -41,7 +41,7 @@ class CAModel:
 
     @property
     def step(self) -> Callable[[torch.Tensor], torch.Tensor]:
-        return lambda state: stencil.step(state, self.rule)
+        return stencil.step_fn(self.rule)
 
     def run(self, n_steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
         return stencil.multi_step_fn(self.rule, n_steps)

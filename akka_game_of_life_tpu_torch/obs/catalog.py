@@ -391,8 +391,9 @@ CATALOG = (
     ("gol_program_invocations_total", "counter",
      "Invocations of registered jitted programs, per family", ("family",)),
     ("gol_program_device_seconds_total", "counter",
-     "Host-observed seconds inside registered jitted programs, per "
-     "family (async dispatch makes this a throughput lower bound)",
+     "Device seconds inside registered programs, per family: CUDA-event "
+     "time on the card (added once the stop event has completed), host "
+     "wall time for calls that stay on the host",
      ("family",)),
     ("gol_compile_storms_total", "counter",
      "Compile storms: NEW programs that compiled after warmup (each one "

@@ -9,7 +9,7 @@ surface — one line per factory site — and buys three things:
 - **a program ledger**: which jitted programs exist (per ``family`` and
   ``key``), when each compiled, and what its first call cost — the
   compile bill that XLA otherwise hides inside a mysteriously slow call;
-- **a live roofline**: each call's host-observed seconds plus the site's
+- **a live roofline**: each call's device seconds plus the site's
   plan-priced cells/bytes/FLOPs accumulate into per-family cell-updates/s
   and arithmetic intensity, reported by :meth:`ProgramRegistry.cost_doc`;
 - **a compile-storm alarm**: after :meth:`ProgramRegistry.mark_warm`
@@ -18,12 +18,27 @@ surface — one line per factory site — and buys three things:
   novel (class, length) pair stalling a whole ticker batch — and edges
   an event + flight-recorder dump (``obs/flight.py``) the moment it happens.
 
-Honesty note on "device seconds": per-call timing is host wall time
-around the jitted call.  Under JAX async dispatch this is dispatch time
-unless the caller blocks on the result (the runtime's chunk loops do;
-the serve ticker does).  The ledger documents a *lower bound* on
-throughput, not a device-counter truth — the on-demand profiler
-(``POST /profile``) exists for the latter.
+What "seconds" measures.  A call whose first tensor argument, or whose
+result, is a CUDA tensor is timed by the card's clock: a start and a stop
+``torch.cuda.Event`` recorded on that device's current stream at the
+call's entry and at its exit.  Launches are asynchronous and the call path
+adds no host synchronisation, so the pair is pending when the call returns; it
+is resolved without blocking (``query()``) at the record's next call, and
+by waiting on the stop event in :meth:`~ProgramRegistry.snapshot`,
+:meth:`~ProgramRegistry.summary`, :meth:`~ProgramRegistry.cost_doc` and
+:meth:`~ProgramRegistry.health_summary`.  Only then does it add to
+``seconds`` and ``gol_program_device_seconds_total``.  The pair spans the
+stream's time from the start event to the stop event: the kernels, and any
+gap in which the card waited on the host inside the call.  Every other call
+(CPU tensors, or numpy in and numpy out, whose round trip blocks anyway) is
+timed by the host's wall clock.  ``compile_seconds`` is the first call's
+host wall time: on the card that is the ``nvcc`` build of the kernel's
+library where ``build/kernels/`` lacks it, its ``ctypes`` load, and the
+launches' dispatch.
+
+A program wrapped inside another's call is counted on every call (the
+packed sweep under a cluster worker's ``worker_chunk``): nothing here is
+traced once, as a jit's inner program is.
 
 Federation: workers ship :data:`runtime.protocol.COST` frames built from
 :meth:`summary` on a low cadence; the frontend feeds them to
@@ -41,7 +56,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 from akka_game_of_life_tpu_torch.obs.metrics import get_registry
 
@@ -83,6 +98,14 @@ def _c_family(reg, name: str, help: str):
     return reg.counter(name, help, ("family",))
 
 
+def _c_device_seconds(reg):
+    return _c_family(
+        reg, "gol_program_device_seconds_total",
+        "Device seconds inside registered programs (CUDA events on the "
+        "card, host wall time otherwise)",
+    )
+
+
 def _h_compile(reg):
     from akka_game_of_life_tpu_torch.obs.catalog import COMPILE_BUCKETS
 
@@ -91,6 +114,57 @@ def _h_compile(reg):
         "First-call (compile) wall seconds per jitted program",
         ("family",), buckets=COMPILE_BUCKETS,
     )
+
+
+def _first_tensor(values: Iterable):
+    """The first torch tensor among ``values``, looking one level into a
+    tuple or list (a program's result may be one)."""
+    import torch
+
+    for v in values:
+        if isinstance(v, (tuple, list)):
+            v = next((x for x in v if isinstance(x, torch.Tensor)), None)
+        if isinstance(v, torch.Tensor):
+            return v
+    return None
+
+
+def _start_event(args, kwargs):
+    """Before a call: ``(event, device, sure)`` with a timing event recorded
+    on the device's current stream, where the call may run on the card.
+    ``sure`` where the first tensor argument is a CUDA tensor; otherwise,
+    once this process has touched the card, on the current device in case
+    the result lands there (the serve programs take host arrays and answer
+    on the card).  None for a call that stays on the host."""
+    import torch
+
+    arg = _first_tensor((*args, *kwargs.values()))
+    if arg is not None and arg.device.type == "cuda":
+        dev, sure = arg.device, True
+    elif torch.cuda.is_initialized():
+        dev, sure = torch.device("cuda", torch.cuda.current_device()), False
+    else:
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(dev))
+    return ev, dev, sure
+
+
+def _stop_event(start, out):
+    """After the call: the (start, stop) pair to resolve later, or None
+    where the call did not run on the card (host wall time then)."""
+    if start is None:
+        return None
+    import torch
+
+    ev, dev, sure = start
+    if not sure:
+        res = _first_tensor((out,))
+        if res is None or res.device != dev:
+            return None
+    stop = torch.cuda.Event(enable_timing=True)
+    stop.record(torch.cuda.current_stream(dev))
+    return ev, stop
 
 
 def stencil_cost(
@@ -125,6 +199,7 @@ class ProgramRecord:
     __slots__ = (
         "family", "key", "compile_s", "compile_started", "calls",
         "seconds", "cells", "bytes", "flops", "post_warm", "storm_fired",
+        "pending",
     )
 
     def __init__(self, family: str, key: str, post_warm: bool) -> None:
@@ -139,6 +214,8 @@ class ProgramRecord:
         self.flops = 0.0
         self.post_warm = post_warm
         self.storm_fired = False
+        # (start, stop) CUDA event pairs of calls not yet resolved.
+        self.pending: List[tuple] = []
 
     def to_dict(self) -> dict:
         return {
@@ -239,9 +316,10 @@ class ProgramRegistry:
         ``cost`` prices one invocation: a static dict with ``cells`` /
         ``bytes`` / ``flops`` keys (factory keys encode shapes, so the
         per-call cost is usually static), or a callable over the call's
-        arguments returning one.  First call timing is recorded as the
-        compile bill; every call adds host-observed seconds and priced
-        work to the family totals.
+        arguments returning one.  The first call's host wall time is
+        recorded as the compile bill; every call adds its seconds (CUDA
+        events on the card, resolved later; host wall time otherwise, see
+        the module docstring) and priced work to the family totals.
         """
         if not self.enabled:
             return fn
@@ -264,14 +342,21 @@ class ProgramRegistry:
                 first = not rec.compile_started
                 if first:
                     rec.compile_started = True
+                resolved = self._resolve_locked((rec,))
+            self._count_device_seconds(resolved)
+            start = _start_event(args, kwargs)
             t0 = self._clock()
             out = fn(*args, **kwargs)
             dt = self._clock() - t0
+            timed = _stop_event(start, out)
             c = cost(*args, **kwargs) if callable(cost) else cost
             storm = False
             with self._lock:
                 rec.calls += 1
-                rec.seconds += dt
+                if timed is None:
+                    rec.seconds += dt
+                else:
+                    rec.pending.append(timed)
                 if first:
                     rec.compile_s = dt
                 if c:
@@ -287,10 +372,8 @@ class ProgramRegistry:
                 mreg, "gol_program_invocations_total",
                 "Invocations of registered jitted programs",
             ).labels(family=family).inc()
-            _c_family(
-                mreg, "gol_program_device_seconds_total",
-                "Host-observed seconds inside registered jitted programs",
-            ).labels(family=family).inc(dt)
+            if timed is None:
+                _c_device_seconds(mreg).labels(family=family).inc(dt)
             if first:
                 _h_compile(mreg).labels(family=family).observe(dt)
             if storm:
@@ -299,6 +382,44 @@ class ProgramRegistry:
 
         call.__wrapped__ = fn
         return call
+
+    # -- CUDA-event seconds ---------------------------------------------------
+
+    def _resolve_locked(self, recs) -> Dict[str, float]:
+        """Add every finished event pair of ``recs`` to its record's
+        seconds (caller holds the lock; never blocks).  Returns the seconds
+        added per family, for the counter."""
+        added: Dict[str, float] = {}
+        for rec in recs:
+            if not rec.pending:
+                continue
+            keep = []
+            for start, stop in rec.pending:
+                if stop.query():
+                    s = start.elapsed_time(stop) / 1e3
+                    rec.seconds += s
+                    added[rec.family] = added.get(rec.family, 0.0) + s
+                else:
+                    keep.append((start, stop))
+            rec.pending = keep
+        return added
+
+    def _count_device_seconds(self, added: Dict[str, float]) -> None:
+        if added:
+            counter = _c_device_seconds(self._reg())
+            for family, s in added.items():
+                counter.labels(family=family).inc(s)
+
+    def settle(self) -> None:
+        """Wait for every pending call on the card and add its seconds:
+        what each report does first, so none reads a call half counted."""
+        with self._lock:
+            stops = [stop for rec in self._programs.values() for _, stop in rec.pending]
+        for stop in stops:
+            stop.synchronize()
+        with self._lock:
+            added = self._resolve_locked(self._programs.values())
+        self._count_device_seconds(added)
 
     def _emit_storm(self, rec: ProgramRecord) -> None:
         self._reg().counter(
@@ -470,6 +591,7 @@ class ProgramRegistry:
 
     def family_summary(self) -> Dict[str, dict]:
         """Local per-family aggregates (what a COST frame carries)."""
+        self.settle()
         out: Dict[str, dict] = {}
         with self._lock:
             for rec in self._programs.values():
@@ -515,6 +637,7 @@ class ProgramRegistry:
     def snapshot(self) -> dict:
         """The ``/programs`` document: every local program, plus each
         member's federated family summary."""
+        self.settle()
         with self._lock:
             programs = sorted(
                 (rec.to_dict() for rec in self._programs.values()),

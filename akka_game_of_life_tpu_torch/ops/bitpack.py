@@ -25,6 +25,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from akka_game_of_life_tpu_torch.obs.programs import registered_jit
 from akka_game_of_life_tpu_torch.ops.rules import Rule, resolve_rule
 
 LANE_BITS = 32
@@ -222,11 +223,38 @@ def packed_multi_step(words: torch.Tensor, rule, n: int) -> torch.Tensor:
     return words
 
 
-def packed_multi_step_fn(rule, n_steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The ``kernel=bitpack`` stepper: a closure over :func:`packed_multi_step`."""
+def _packed_cost(x: torch.Tensor, steps: int) -> dict:
+    """Plan-priced per-call cost of a packed-word program: 1 bit/cell on
+    the wire, ~2 word-ops per cell-update in the adder tree."""
+    cells = float(x.numel()) * x.element_size() * 8 * steps
+    return {
+        "cells": cells,
+        "bytes": 2.0 * x.numel() * x.element_size() * steps,
+        "flops": 2.0 * cells,
+    }
+
+
+def packed_step_fn(rule) -> Callable[[torch.Tensor], torch.Tensor]:
+    """One generation of :func:`step_packed`, registered on the program
+    ledger (family ``bitpack``)."""
     rule = resolve_rule(rule)
     require_packed_support(rule)
-    return lambda words: packed_multi_step(words, rule, n_steps)
+    return registered_jit(
+        "bitpack", ("step", rule.name), lambda words: step_packed(words, rule),
+        cost=lambda x: _packed_cost(x, 1),
+    )
+
+
+def packed_multi_step_fn(rule, n_steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The ``kernel=bitpack`` stepper: a closure over :func:`packed_multi_step`,
+    registered on the program ledger (family ``bitpack``)."""
+    rule = resolve_rule(rule)
+    require_packed_support(rule)
+    return registered_jit(
+        "bitpack", ("multi_step", rule.name, n_steps),
+        lambda words: packed_multi_step(words, rule, n_steps),
+        cost=lambda x: _packed_cost(x, n_steps),
+    )
 
 
 # -- observation ---------------------------------------------------------------

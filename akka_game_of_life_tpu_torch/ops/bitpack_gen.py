@@ -36,6 +36,7 @@ from typing import Callable, List
 import numpy as np
 import torch
 
+from akka_game_of_life_tpu_torch.obs.programs import registered_jit
 from akka_game_of_life_tpu_torch.ops.bitpack import (
     _count_bits,
     _row_triple_sum,
@@ -241,10 +242,22 @@ def gen_multi_step(planes: torch.Tensor, rule, n: int) -> torch.Tensor:
 
 def gen_multi_step_fn(rule, n_steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
     """The ``kernel=bitpack`` plane stepper: a closure over
-    :func:`gen_multi_step`."""
+    :func:`gen_multi_step`, registered on the program ledger (family
+    ``bitpack_gen``)."""
     rule = resolve_rule(rule)
     require_plane_support(rule)
-    return lambda planes: gen_multi_step(planes, rule, n_steps)
+    return registered_jit(
+        "bitpack_gen", ("multi_step", rule.name, n_steps),
+        lambda planes: gen_multi_step(planes, rule, n_steps),
+        # One board's worth of cells per step; the plane stack is the byte
+        # traffic.
+        cost=lambda planes: {
+            "cells": float(planes.shape[-2])
+            * planes.shape[-1] * planes.element_size() * 8 * n_steps,
+            "bytes": 2.0 * planes.numel() * planes.element_size() * n_steps,
+            "flops": 4.0 * planes.numel() * planes.element_size() * 8 * n_steps,
+        },
+    )
 
 
 # -- observation ---------------------------------------------------------------

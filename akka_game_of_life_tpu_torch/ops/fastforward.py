@@ -34,6 +34,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from akka_game_of_life_tpu_torch.obs.programs import registered_jit
 from akka_game_of_life_tpu_torch.ops import guard
 from akka_game_of_life_tpu_torch.ops.rules import linear_kernel, resolve_rule
 
@@ -181,10 +182,22 @@ def apply_offsets(board: torch.Tensor, offs: np.ndarray) -> torch.Tensor:
 @functools.lru_cache(maxsize=2048)
 def _jump_pow2_fn(rule_key, k: int, shape: Tuple[int, int]) -> Callable:
     """A 2^k-epoch jump: the base kernel with offsets scaled by 2^k,
-    parity-deduped on the host, applied as at most |K| rolls + XORs."""
+    parity-deduped on the host, applied as at most |K| rolls + XORs;
+    registered on the program ledger (family ``fastforward``)."""
     rule = resolve_rule(rule_key)
     shifts = _scaled_offsets(kernel_offsets(rule), k, shape)
-    return lambda board: apply_offsets(board, shifts)
+    h, w = int(shape[-2]), int(shape[-1])
+    return registered_jit(
+        "fastforward", ("jump_pow2", rule.name, k, shape),
+        lambda board: apply_offsets(board, shifts),
+        # Effective work: one call advances 2^k epochs; the device traffic
+        # is |shifts| rolls + XORs over one board.
+        cost={
+            "cells": float(h) * w * (2 ** k),
+            "bytes": float(len(shifts) + 1) * h * w,
+            "flops": float(len(shifts)) * h * w,
+        },
+    )
 
 
 def fast_forward(board: torch.Tensor, rule, t: int) -> torch.Tensor:
@@ -337,7 +350,16 @@ def jump_matmul_fn(rule_key, t: int, shape: Tuple[int, int], mode: str = "auto",
             ms._col_pass(yp, slab_c, kc, h, w, out, mode)
         return (out.to(torch.int32) & 1).to(board.dtype)
 
-    return run
+    return registered_jit(
+        "fastforward", ("jump_matmul", rule.name, t, shape, mode), run,
+        # Effective cells: t epochs in one call; bytes from the guard-priced
+        # plane estimate; flops from the two banded GEMM passes.
+        cost={
+            "cells": float(h) * w * t,
+            "bytes": float(est),
+            "flops": 2.0 * h * w * ((kr + 2 * sr) + (kc + 2 * sc)),
+        },
+    )
 
 
 def jump_plan(rule, t: int, shape: Tuple[int, int]) -> dict:

@@ -37,11 +37,13 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from akka_game_of_life_tpu_torch.obs.programs import registered_jit
 from akka_game_of_life_tpu_torch.ops import bitpack, bitpack_gen
 from akka_game_of_life_tpu_torch.ops.packed_sweep import (
     MAX_GRID_ROWS,
     MAX_STEPS_PER_SWEEP,
     combine_choice,
+    launch_on_stream,
     plan_sweeps,
 )
 from akka_game_of_life_tpu_torch.ops.rules import Rule, resolve_rule
@@ -201,6 +203,45 @@ def _launcher(defines: Tuple[str, ...]) -> _Library:
     )
 
 
+def _check_cuda_planes(planes: torch.Tensor, m: int) -> None:
+    """Refuse what the kernel cannot take: anything but ``m`` contiguous
+    (H, W/32) int32 planes on the card."""
+    if planes.device.type != "cuda":
+        raise ValueError(f"the CUDA plane sweep needs a CUDA tensor, got {planes.device}")
+    if planes.dtype != bitpack.WORD_DTYPE:
+        raise ValueError(f"bit planes must be int32, got {planes.dtype}")
+    if not planes.is_contiguous():
+        raise ValueError("bit planes must be a contiguous (m, H, W/32) tensor")
+    _check_planes(planes, m)
+
+
+def _checked_library(rule: Rule, defines: Tuple[str, ...]) -> _Library:
+    """The library ``defines`` names; raises if it was built for another
+    rule."""
+    library = _launcher(defines)
+    if library.variant[:4] != _variant(rule):
+        raise RuntimeError(
+            f"plane sweep library {defines} was built for rule "
+            f"{library.variant[:4]}, not {rule}'s {_variant(rule)}"
+        )
+    return library
+
+
+def _enqueue(library: _Library, planes: torch.Tensor, steps_per_sweep: int) -> torch.Tensor:
+    """Queue one sweep of checked ``planes`` through ``library`` on the
+    current stream: the whole of a launch's host work."""
+    m, h, nw = planes.shape
+    out = torch.empty_like(planes)
+    rc = launch_on_stream(
+        planes.device, library.launch, planes.data_ptr(), out.data_ptr(), m, h, nw, steps_per_sweep
+    )
+    if rc != 0:
+        raise RuntimeError(f"gen_sweep_launch failed: CUDA error {rc}")
+    with _COUNT_LOCK:
+        gen_sweep.launches += 1
+    return out
+
+
 def _launch(
     planes: torch.Tensor,
     rule: Rule,
@@ -211,34 +252,10 @@ def _launch(
     ``defines`` names (by default the rule's, at the default tile); raises
     on anything else, including a depth the kernel refuses, and if the
     library was built for another rule."""
-    m = bitpack_gen.n_planes(rule.states)
-    if planes.device.type != "cuda":
-        raise ValueError(f"the CUDA plane sweep needs a CUDA tensor, got {planes.device}")
-    if planes.dtype != bitpack.WORD_DTYPE:
-        raise ValueError(f"bit planes must be int32, got {planes.dtype}")
-    if not planes.is_contiguous():
-        raise ValueError("bit planes must be a contiguous (m, H, W/32) tensor")
-    _check_planes(planes, m)
+    _check_cuda_planes(planes, bitpack_gen.n_planes(rule.states))
     if defines is None:
         defines = library_defines(rule)
-    library = _launcher(defines)
-    if library.variant[:4] != _variant(rule):
-        raise RuntimeError(
-            f"plane sweep library {defines} was built for rule "
-            f"{library.variant[:4]}, not {rule}'s {_variant(rule)}"
-        )
-    _, h, nw = planes.shape
-    out = torch.empty_like(planes)
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    with torch.cuda.device(planes.device):
-        rc = library.launch(
-            planes.data_ptr(), out.data_ptr(), m, h, nw, steps_per_sweep, stream
-        )
-    if rc != 0:
-        raise RuntimeError(f"gen_sweep_launch failed: CUDA error {rc}")
-    with _COUNT_LOCK:
-        gen_sweep.launches += 1
-    return out
+    return _enqueue(_checked_library(rule, defines), planes, steps_per_sweep)
 
 
 def gen_sweep(
@@ -273,20 +290,48 @@ def gen_multi_step_fn(
     (``packed_sweep.DEFAULT_STEPS_PER_SWEEP`` deep, the last one taking the
     remainder, or ``steps_per_sweep`` deep where given, which must divide
     ``n_steps``), through the ``tile_rows`` variant.  Each sweep writes a
-    fresh buffer; the caller's input is never overwritten."""
+    fresh buffer; the caller's input is never overwritten.  Registered on
+    the program ledger as family ``pallas_gen``, keyed and priced as the
+    JAX package's plane sweep.
+
+    Whatever depends on the rule and the plan alone is settled here, and
+    the library once, at the first call on the card: a call's host work
+    before its first launch is time in which the card waits."""
     rule = resolve_rule(rule)
     m = require_sweep_support(rule)
     depths = plan_sweeps(n_steps, steps_per_sweep)
     for k in set(depths):
         _check_steps(m, k)
         check_tile(tile_rows, k)
+    defines = library_defines(rule, tile_rows)
+    library: Optional[_Library] = None
 
     def run(planes: torch.Tensor) -> torch.Tensor:
+        nonlocal library
+        if planes.device.type != "cuda":
+            for k in depths:
+                planes = gen_sweep(planes, rule, k, tile_rows=tile_rows)
+            return planes
+        _check_cuda_planes(planes, m)
+        check_tile(tile_rows, depths[0], planes.shape[1])
+        if library is None:
+            library = _checked_library(rule, defines)
         for k in depths:
-            planes = gen_sweep(planes, rule, k, tile_rows=tile_rows)
+            planes = _enqueue(library, planes, k)
         return planes
 
-    return run
+    rows = DEFAULT_TILE_ROWS if tile_rows is None else tile_rows
+    return registered_jit(
+        "pallas_gen", ("multi_step", rule.name, n_steps, rows), run,
+        # m packed planes encode one board: one board of cells per step,
+        # m planes of byte traffic per sweep.
+        cost=lambda planes: {
+            "cells": float(planes.shape[-2])
+            * planes.shape[-1] * planes.element_size() * 8 * n_steps,
+            "bytes": 2.0 * planes.numel() * planes.element_size() * len(depths),
+            "flops": 4.0 * planes.numel() * planes.element_size() * 8 * n_steps,
+        },
+    )
 
 
 def _and_lop3(n: int) -> int:

@@ -31,6 +31,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from akka_game_of_life_tpu_torch.obs.programs import registered_jit, stencil_cost
 from akka_game_of_life_tpu_torch.ops import guard
 from akka_game_of_life_tpu_torch.ops.rules import Rule, resolve_rule
 
@@ -151,16 +152,27 @@ def step_ltl(state: torch.Tensor, rule, engine: str = "shift-add") -> torch.Tens
     return step_padded_ltl(wrap_pad(state, rule.radius), rule)
 
 
-def ltl_multi_step_fn(rule, n_steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
-    """``n_steps`` generations of :func:`step_ltl`."""
+def ltl_multi_step_fn(
+    rule, n_steps: int, engine: str = "shift-add"
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``n_steps`` generations of :func:`step_ltl` on ``engine``, registered
+    on the program ledger (family ``ltl``)."""
     rule = resolve_rule(rule)
 
     def run(state: torch.Tensor) -> torch.Tensor:
         for _ in range(n_steps):
-            state = step_ltl(state, rule)
+            state = step_ltl(state, rule, engine)
         return state
 
-    return run
+    return registered_jit(
+        "ltl", ("multi_step", rule.name, engine, n_steps), run,
+        # Shift-add visits the (2R+1)-wide window per cell: 2(2R+1) adds
+        # via the separable row/col pass.
+        cost=lambda state: stencil_cost(
+            state.shape[-2], state.shape[-1], n_steps,
+            flops_per_cell=4.0 * rule.radius + 4.0,
+        ),
+    )
 
 
 # -- host (np) twins -----------------------------------------------------------

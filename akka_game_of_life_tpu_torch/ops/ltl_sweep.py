@@ -29,7 +29,9 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from akka_game_of_life_tpu_torch.obs.programs import registered_jit, stencil_cost
 from akka_game_of_life_tpu_torch.ops import ltl
+from akka_game_of_life_tpu_torch.ops.packed_sweep import launch_on_stream
 from akka_game_of_life_tpu_torch.ops.rules import Rule, resolve_rule
 
 MAX_RADIUS = 10
@@ -133,10 +135,9 @@ def _library(defines: Tuple[str, ...] = ()):
     return lib
 
 
-def _launch(
-    board: torch.Tensor, rule: Rule, defines: Tuple[str, ...] = ()
-) -> torch.Tensor:
-    """Launch the CUDA kernel on a CUDA tensor; raises on anything else."""
+def _check_board(board: torch.Tensor) -> None:
+    """Refuse what the kernel cannot take: anything but a contiguous
+    (H, W) uint8 tensor on the card."""
     if board.device.type != "cuda":
         raise ValueError(f"the CUDA LtL step needs a CUDA tensor, got {board.device}")
     if board.dtype != torch.uint8:
@@ -146,21 +147,35 @@ def _launch(
             f"the LtL board must be a contiguous (H, W) tensor, got shape "
             f"{tuple(board.shape)}"
         )
+
+
+def _enqueue(launch: Callable, board: torch.Tensor, radius: int, ranges: torch.Tensor) -> torch.Tensor:
+    """Queue one generation of a checked ``board`` through the library's
+    ``launch`` on the current stream, with the rule table ``ranges`` on the
+    board's card: the whole of a launch's host work."""
     h, w = board.shape
     out = torch.empty_like(board)
     # 16-byte loads and stores where every row starts on a 16-byte boundary.
     aligned = w % 16 == 0 and board.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    ranges = _ranges_on(rule, board.device)
-    stream = torch.cuda.current_stream(board.device).cuda_stream
-    with torch.cuda.device(board.device):
-        rc = _library(defines).ltl_sweep_launch(
-            board.data_ptr(), out.data_ptr(), h, w, rule.radius,
-            ranges.data_ptr(), int(aligned), stream,
-        )
+    rc = launch_on_stream(
+        board.device, launch, board.data_ptr(), out.data_ptr(), h, w, radius,
+        ranges.data_ptr(), int(aligned),
+    )
     if rc != 0:
         raise RuntimeError(f"ltl_sweep_launch failed: CUDA error {rc}")
     ltl_sweep.launches += 1
     return out
+
+
+def _launch(
+    board: torch.Tensor, rule: Rule, defines: Tuple[str, ...] = ()
+) -> torch.Tensor:
+    """Launch the CUDA kernel on a CUDA tensor; raises on anything else."""
+    _check_board(board)
+    return _enqueue(
+        _library(defines).ltl_sweep_launch, board, rule.radius,
+        _ranges_on(rule, board.device),
+    )
 
 
 def ltl_sweep(
@@ -187,17 +202,41 @@ def ltl_multi_step_fn(
     """An ``n_steps`` advance: one launch per generation (the Pallas scan
     of ``ltl_pallas_multi_step_fn`` as a Python loop), through the
     ``tile_rows`` variant.  Each launch writes a fresh buffer; the caller's
-    input is never overwritten."""
+    input is never overwritten.  Registered on the program ledger as family
+    ``pallas_ltl``, keyed and priced as the JAX package's LtL sweep.
+
+    Whatever depends on the rule alone is settled here, and the library
+    and the rule table once, at the first call on the card: a call's host
+    work before its first launch is time in which the card waits."""
     rule = resolve_rule(rule)
     require_sweep_support(rule)
     check_tile(tile_rows, rule.radius)
+    defines = tile_defines(tile_rows)
+    launch: Optional[Callable] = None
 
     def run(board: torch.Tensor) -> torch.Tensor:
+        nonlocal launch
+        if board.device.type != "cuda":
+            for _ in range(n_steps):
+                board = ltl_sweep(board, rule, tile_rows=tile_rows)
+            return board
+        _check_board(board)
+        check_tile(tile_rows, rule.radius, board.shape[0])
+        if launch is None:
+            launch = _library(defines).ltl_sweep_launch
+        ranges = _ranges_on(rule, board.device)
         for _ in range(n_steps):
-            board = ltl_sweep(board, rule, tile_rows=tile_rows)
+            board = _enqueue(launch, board, rule.radius, ranges)
         return board
 
-    return run
+    rows = DEFAULT_TILE_ROWS if tile_rows is None else tile_rows
+    return registered_jit(
+        "pallas_ltl", ("multi_step", rule.name, n_steps, rows), run,
+        cost=lambda x: stencil_cost(
+            x.shape[-2], x.shape[-1], n_steps,
+            flops_per_cell=4.0 * rule.radius + 4.0,
+        ),
+    )
 
 
 def ops_per_cell(rule) -> int:

@@ -56,6 +56,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from akka_game_of_life_tpu_torch.obs.programs import registered_jit
 from akka_game_of_life_tpu_torch.ops import guard
 from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
 from akka_game_of_life_tpu_torch.ops.stencil import alive_mask, apply_rule
@@ -443,7 +444,9 @@ def matmul_multi_step_fn(
     rule, n_steps: int, mode: str = "auto", device="cuda"
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """The ``kernel=matmul`` stepper: ``n_steps`` banded-matmul generations
-    per call, in the lane ``mode`` resolves to on ``device``."""
+    per call, in the lane ``mode`` resolves to on ``device``; registered on
+    the program ledger (family ``matmul``, keyed by the ``mode`` asked
+    for, as the JAX package keys it)."""
     rule = resolve_rule(rule)
     lane = _resolve_mode(mode, device)
 
@@ -452,4 +455,18 @@ def matmul_multi_step_fn(
             state = step_matmul(state, rule, lane)
         return state
 
-    return run
+    def cost(state):
+        h, w = int(state.shape[-2]), int(state.shape[-1])
+        # The plan priced these intermediates when the step was first
+        # planned; lru_cache makes the re-ask free.
+        plan = plan_matmul((h, w), rule.radius, lane, device=state.device.type)
+        return {
+            "cells": float(h) * w * n_steps,
+            "bytes": float(plan.est_bytes) * n_steps,
+            # Two banded GEMM passes per step over the packed operand.
+            "flops": 4.0 * h * plan.packed_width * (2 * rule.radius + 1) * n_steps,
+        }
+
+    return registered_jit(
+        "matmul", ("multi_step", rule.name, mode, n_steps), run, cost=cost
+    )

@@ -35,6 +35,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from akka_game_of_life_tpu_torch.obs.programs import registered_jit
 from akka_game_of_life_tpu_torch.ops import bitpack
 from akka_game_of_life_tpu_torch.ops.rules import Rule, resolve_rule
 
@@ -172,15 +173,9 @@ def _launcher(defines: Tuple[str, ...]) -> _Library:
     return _Library(fn, (birth.value, survive1.value, tile.value))
 
 
-def _launch(
-    words: torch.Tensor,
-    rule: Rule,
-    steps_per_sweep: int,
-    defines: Optional[Tuple[str, ...]] = None,
-) -> torch.Tensor:
-    """Launch the CUDA kernel on a CUDA tensor through the library
-    ``defines`` names (by default the rule's, at the default tile); raises
-    on anything else, and if the library was built for another rule."""
+def _check_words(words: torch.Tensor) -> None:
+    """Refuse what the kernel cannot take: anything but a contiguous
+    (H, W/32) int32 tensor on the card."""
     if words.device.type != "cuda":
         raise ValueError(f"the CUDA sweep needs a CUDA tensor, got {words.device}")
     if words.dtype != bitpack.WORD_DTYPE:
@@ -190,25 +185,61 @@ def _launch(
             f"packed words must be a contiguous (H, W/32) tensor, got "
             f"shape {tuple(words.shape)}"
         )
-    if defines is None:
-        defines = library_defines(rule)
+
+
+def _checked_library(rule: Rule, defines: Tuple[str, ...]) -> _Library:
+    """The library ``defines`` names; raises if it was built for another
+    rule."""
     library = _launcher(defines)
     if library.variant[:2] != rule_masks(rule):
         raise RuntimeError(
             f"packed sweep library {defines} was built for rule masks "
             f"{library.variant[:2]}, not {rule}'s {rule_masks(rule)}"
         )
+    return library
+
+
+def launch_on_stream(device: torch.device, launch: Callable, *args) -> int:
+    """``launch(*args, stream)``: a library's C entry point called with the
+    raw handle of ``device``'s current stream last, that card made current
+    where it is not.  ``torch.cuda.current_stream`` and ``torch.cuda.device``
+    build Python objects on every call, host work that the card waits
+    through before a call's first launch."""
+    index = device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        return launch(*args, stream)
+    with torch.cuda.device(index):
+        return launch(*args, stream)
+
+
+def _enqueue(library: _Library, words: torch.Tensor, steps_per_sweep: int) -> torch.Tensor:
+    """Queue one sweep of checked ``words`` through ``library`` on the
+    current stream: the whole of a launch's host work."""
     h, nw = words.shape
     out = torch.empty_like(words)
-    stream = torch.cuda.current_stream(words.device).cuda_stream
-    with torch.cuda.device(words.device):
-        rc = library.launch(
-            words.data_ptr(), out.data_ptr(), h, nw, steps_per_sweep, stream
-        )
+    rc = launch_on_stream(
+        words.device, library.launch, words.data_ptr(), out.data_ptr(), h, nw, steps_per_sweep
+    )
     if rc != 0:
         raise RuntimeError(f"packed_sweep_launch failed: CUDA error {rc}")
     _count_launch()
     return out
+
+
+def _launch(
+    words: torch.Tensor,
+    rule: Rule,
+    steps_per_sweep: int,
+    defines: Optional[Tuple[str, ...]] = None,
+) -> torch.Tensor:
+    """Launch the CUDA kernel on a CUDA tensor through the library
+    ``defines`` names (by default the rule's, at the default tile); raises
+    on anything else, and if the library was built for another rule."""
+    _check_words(words)
+    if defines is None:
+        defines = library_defines(rule)
+    return _enqueue(_checked_library(rule, defines), words, steps_per_sweep)
 
 
 def _count_launch() -> None:
@@ -246,19 +277,45 @@ def packed_multi_step_fn(
     gives, through the ``tile_rows`` variant.  Each sweep writes a fresh
     buffer; the one it read is released to PyTorch's caching allocator,
     which hands it back to the next sweep, so two buffers alternate and the
-    caller's input is never overwritten."""
+    caller's input is never overwritten.  Registered on the program ledger
+    as family ``pallas``, keyed and priced as the JAX package's sweep.
+
+    Whatever depends on the rule and the plan alone is settled here, and
+    the library once, at the first call on the card: a call's host work
+    before its first launch is time in which the card waits."""
     rule = resolve_rule(rule)
     bitpack.require_packed_support(rule)
     depths = plan_sweeps(n_steps, steps_per_sweep)
     for k in set(depths):
         check_tile(tile_rows, k)
+    defines = library_defines(rule, tile_rows)
+    library: Optional[_Library] = None
 
     def run(words: torch.Tensor) -> torch.Tensor:
+        nonlocal library
+        if words.device.type != "cuda":
+            for k in depths:
+                words = packed_sweep(words, rule, k, tile_rows=tile_rows)
+            return words
+        _check_words(words)
+        check_tile(tile_rows, depths[0], words.shape[0])
+        if library is None:
+            library = _checked_library(rule, defines)
         for k in depths:
-            words = packed_sweep(words, rule, k, tile_rows=tile_rows)
+            words = _enqueue(library, words, k)
         return words
 
-    return run
+    rows = DEFAULT_TILE_ROWS if tile_rows is None else tile_rows
+    return registered_jit(
+        "pallas", ("packed_multi_step", rule.name, n_steps, rows), run,
+        # Packed words: 32 cells/element; the temporal blocking reads and
+        # writes the board once per sweep, not per step.
+        cost=lambda x: {
+            "cells": float(x.numel()) * x.element_size() * 8 * n_steps,
+            "bytes": 2.0 * x.numel() * x.element_size() * len(depths),
+            "flops": 2.0 * x.numel() * x.element_size() * 8 * n_steps,
+        },
+    )
 
 
 def _combine_network(

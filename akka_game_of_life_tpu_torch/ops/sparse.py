@@ -35,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from akka_game_of_life_tpu_torch.obs.programs import registered_jit, stencil_cost
 from akka_game_of_life_tpu_torch.ops import stencil
 from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
 
@@ -112,6 +113,9 @@ class SparseStepper:
         self.grid = (self.shape[0] // self.block, self.shape[1] // self.block)
         self._changed: Optional[np.ndarray] = None
         self._last_out: Optional[np.ndarray] = None
+        # The device programs, cached per (path, steps): each registers on
+        # the program ledger once.
+        self._fns: dict = {}
         # Consecutive dense chunks: even ones skip the bitmap (assume all
         # active, an over-approximation, so still exact).
         self._dense_streak = 0
@@ -125,34 +129,64 @@ class SparseStepper:
     def total_blocks(self) -> int:
         return self.grid[0] * self.grid[1]
 
-    # -- the device work ---------------------------------------------------------
+    # -- the device programs (cached per steps, on the program ledger) ----------
 
-    def _step_slabs(self, slabs: np.ndarray, steps: int):
+    def _block_fn(self, steps: int):
         """(n, B+2k, B+2k) host slabs → (n, B, B) interiors after ``steps``
         toroidal steps on the device, and one changed flag per slab."""
-        b = self.block
-        x = torch.from_numpy(slabs).to(self.device)
-        if self.rule.kind == "ltl":  # the LtL step takes one board at a time
-            out = torch.stack([stencil.multi_step(s, self.rule, steps) for s in x])
-        else:
-            out = stencil.multi_step(x, self.rule, steps)
-        interior = out[:, steps : steps + b, steps : steps + b]
-        before = x[:, steps : steps + b, steps : steps + b]
-        flags = (interior != before).flatten(1).any(dim=1)
-        return interior.cpu().numpy(), flags.cpu().numpy()
+        key = ("block", steps)
+        if key not in self._fns:
+            rule, b, dev = self.rule, self.block, self.device
 
-    def _step_board(self, board: np.ndarray, steps: int, with_bitmap: bool):
-        """The whole board ``steps`` generations on the device, with the
-        changed-block bitmap from the same pass when asked."""
-        x = torch.from_numpy(board).to(self.device)
-        out = stencil.multi_step(x, self.rule, steps)
-        bitmap = None
-        if with_bitmap:
+            def chunk(slabs: np.ndarray):
+                x = torch.from_numpy(slabs).to(dev)
+                if rule.kind == "ltl":  # the LtL step takes one board at a time
+                    out = torch.stack([stencil.multi_step(s, rule, steps) for s in x])
+                else:
+                    out = stencil.multi_step(x, rule, steps)
+                interior = out[:, steps : steps + b, steps : steps + b]
+                before = x[:, steps : steps + b, steps : steps + b]
+                flags = (interior != before).flatten(1).any(dim=1)
+                return interior.cpu().numpy(), flags.cpu().numpy()
+
+            self._fns[key] = registered_jit(
+                "sparse", ("block", rule.name, steps, b), chunk,
+                # slabs: (n, B+2k, B+2k); the gated win is that n is the
+                # ACTIVE block count, not the board's.
+                cost=lambda slabs: {
+                    "cells": float(slabs.shape[0]) * b * b * steps,
+                    "bytes": 2.0 * slabs.size * slabs.dtype.itemsize,
+                    "flops": 18.0 * slabs.shape[0] * b * b * steps,
+                },
+            )
+        return self._fns[key]
+
+    def _dense_fn(self, steps: int):
+        """The whole host board ``steps`` generations on the device, with
+        the changed-block bitmap from the same pass."""
+        key = ("dense", steps)
+        if key not in self._fns:
+            rule, b, dev = self.rule, self.block, self.device
             nbh, nbw = self.grid
-            b = self.block
-            diff = (out != x).reshape(nbh, b, nbw, b)
-            bitmap = diff.any(dim=3).any(dim=1).cpu().numpy()
-        return out.cpu().numpy(), bitmap
+
+            def run(board: np.ndarray):
+                x = torch.from_numpy(board).to(dev)
+                out = stencil.multi_step(x, rule, steps)
+                diff = (out != x).reshape(nbh, b, nbw, b)
+                return out.cpu().numpy(), diff.any(dim=3).any(dim=1).cpu().numpy()
+
+            self._fns[key] = registered_jit(
+                "sparse", ("dense", rule.name, steps, self.shape), run,
+                cost=lambda board: stencil_cost(board.shape[-2], board.shape[-1], steps),
+            )
+        return self._fns[key]
+
+    def _dense_plain_fn(self, steps: int):
+        """The dense stepper without the bitmap (family ``stencil``)."""
+        key = ("plain", steps)
+        if key not in self._fns:
+            self._fns[key] = stencil.multi_step_fn(self.rule, steps)
+        return self._fns[key]
 
     # -- the chunk ------------------------------------------------------------
 
@@ -198,7 +232,12 @@ class SparseStepper:
     def _dense_step(
         self, board: np.ndarray, steps: int, with_bitmap: bool = True
     ) -> np.ndarray:
-        out, self._changed = self._step_board(board, steps, with_bitmap)
+        if with_bitmap:
+            out, self._changed = self._dense_fn(steps)(board)
+        else:
+            x = torch.from_numpy(board).to(self.device)
+            out = self._dense_plain_fn(steps)(x).cpu().numpy()
+            self._changed = None
         self.last_stepped_blocks = self.total_blocks
         self.dense_chunks += 1
         return out
@@ -227,7 +266,7 @@ class SparseStepper:
         pad = next_pow2(n) - n
         if pad:
             slabs = np.concatenate([slabs, slabs[:1].repeat(pad, axis=0)])
-        outs, flags = self._step_slabs(slabs, k)
+        outs, flags = self._block_fn(k)(slabs)
         out = board if inplace else board.copy()
         changed = np.zeros(self.grid, dtype=bool)
         for i, (by, bx) in enumerate(idx):

@@ -14,6 +14,7 @@ from typing import Callable
 
 import torch
 
+from akka_game_of_life_tpu_torch.obs.programs import registered_jit, stencil_cost
 from akka_game_of_life_tpu_torch.ops.rules import Rule, resolve_rule
 
 STATE_DTYPE = torch.uint8
@@ -113,7 +114,22 @@ def multi_step(state: torch.Tensor, rule, n_steps: int) -> torch.Tensor:
     return state
 
 
-def multi_step_fn(rule, n_steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The dense ``n_steps`` stepper: a closure over :func:`multi_step`."""
+def step_fn(rule) -> Callable[[torch.Tensor], torch.Tensor]:
+    """One dense generation of :func:`step`, registered on the program
+    ledger (family ``stencil``)."""
     rule = resolve_rule(rule)
-    return lambda state: multi_step(state, rule, n_steps)
+    return registered_jit(
+        "stencil", ("step", rule.name), lambda state: step(state, rule),
+        cost=lambda state: stencil_cost(state.shape[-2], state.shape[-1]),
+    )
+
+
+def multi_step_fn(rule, n_steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The dense ``n_steps`` stepper: a closure over :func:`multi_step`,
+    registered on the program ledger (family ``stencil``)."""
+    rule = resolve_rule(rule)
+    return registered_jit(
+        "stencil", ("multi_step", rule.name, n_steps),
+        lambda state: multi_step(state, rule, n_steps),
+        cost=lambda state: stencil_cost(state.shape[-2], state.shape[-1], n_steps),
+    )

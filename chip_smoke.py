@@ -101,6 +101,12 @@ through its CLI:
 - activity-gated stepping: a glider on a dead 16384² torus, gated and
   ungated, with equal digests, skipped blocks and a gated checkpoint
   resumed ungated;
+- the program ledger, run last: the headline (120 epochs), WireWorld at 16384² (20)
+  and ``bugs`` at 16384² (10), each run twice in process behind a
+  ``MetricsServer`` with ``/programs`` and ``/cost``: the second run's key,
+  calls, launches and cells as planned, each call's seconds at least 0.9×
+  the event time of its launches back to back, its rate no more than 1.05×
+  the rate at the kernel's bound, and its seconds within the run's wall;
 - the headline with the rest of ``run``: an injected crash replayed from
   the epoch-120 checkpoint (with ``--metrics-file`` and ``--log-events``),
   ``--obs-defer``, ``--checkpoint-sync`` against the default writer thread,
@@ -803,6 +809,196 @@ def ltl_path(tmp: Path, card):
     return auto_counts["ltl_sweep"], dense, dense_s
 
 
+# -- the program ledger ------------------------------------------------------------
+
+# (family, kernel, config file or None, overrides): the three hand-written
+# kernels' programs as ``run`` registers them, each run twice in process.
+PROGRAMS_RUNS = [
+    ("pallas", "packed_sweep", HEADLINE, {"max_epochs": 120}),
+    ("pallas_gen", "gen_sweep", WIREWORLD, {"max_epochs": 20}),
+    ("pallas_ltl", "ltl_sweep", None, {
+        "rule": "bugs", "height": LTL_FULL_SHAPE[0], "width": LTL_FULL_SHAPE[1], "seed": 0,
+        "max_epochs": 10, "steps_per_call": 5, "metrics_every": 5,
+    }),
+]
+# A call's seconds may not fall below this share of the event time of the
+# launches it made, timed back to back: an event pair around its own
+# launches cannot read less than their kernel time, where timing of the
+# dispatch alone reads about 1/50 of it on the headline.
+PROGRAMS_UNDER_LAUNCHES = 0.9
+# Nor may the ledger's rate pass the rate at the kernel's bound by more than
+# this: a higher reading is impossible on the card.
+PROGRAMS_OVER_BOUND = 1.05
+
+
+def _ledger_run(config, log_name: str):
+    """One in-process run of ``config`` on ``SINGLE``, as ``run`` drives
+    it; returns the Simulation's last board, its kernel and tile, and the
+    wall seconds from just before ``advance`` to a synchronise after it."""
+    import torch
+
+    from akka_game_of_life_tpu_torch.runtime.render import BoardObserver
+    from akka_game_of_life_tpu_torch.runtime.simulation import Simulation
+
+    buf = io.StringIO()
+    observer = BoardObserver(
+        render_every=config.render_every, render_max_cells=config.render_max_cells,
+        metrics_every=config.metrics_every, out=buf,
+    )
+    with Simulation(config, observer=observer, device=SINGLE) as sim:
+        t0 = time.perf_counter()
+        sim.advance(config.max_epochs)
+        torch.cuda.synchronize(SINGLE)
+        seconds = time.perf_counter() - t0
+        board, kernel, tile = sim.board, sim.kernel, sim.tile_rows
+    (OUT / log_name).write_text(buf.getvalue())
+    return board, kernel, tile, seconds
+
+
+def _ledger_plan(kernel: str, config, board, tile, rate: float):
+    """What a run of ``config`` through ``kernel`` puts on the ledger: the
+    program's key, the depth of every launch, the bound of those launches
+    in ms, and one bare launch of the first depth on ``board`` through the
+    library the run used."""
+    from akka_game_of_life_tpu_torch import bench
+    from akka_game_of_life_tpu_torch.ops import gen_sweep, ltl_sweep, packed_sweep
+    from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
+
+    rule = resolve_rule(config.rule)
+    h, w, spc = config.height, config.width, config.steps_per_call
+    if kernel == "ltl_sweep":
+        depths = [1] * config.max_epochs
+        key = ("multi_step", rule.name, spc, ltl_sweep.DEFAULT_TILE_ROWS if tile is None else tile)
+        bound_ms = bench.ltl_bound(h, w, rule, rate)["bound_ms"] * len(depths)
+        defines = ltl_sweep.tile_defines(tile)
+        return key, depths, bound_ms, lambda: ltl_sweep._launch(board, rule, defines)
+    chunks = -(-config.max_epochs // spc)
+    depths = [k for _ in range(chunks) for k in packed_sweep.plan_sweeps(spc)]
+    if kernel == "gen_sweep":
+        key = ("multi_step", rule.name, spc, gen_sweep.DEFAULT_TILE_ROWS if tile is None else tile)
+        m, _, nw = board.shape
+        bound_ms = sum(bench.gen_sweep_bound(m, h, nw, k, rule, rate)["bound_ms"] for k in depths)
+        defines = gen_sweep.library_defines(rule, tile)
+        return key, depths, bound_ms, lambda: gen_sweep._launch(board, rule, depths[0], defines)
+    key = ("packed_multi_step", rule.name, spc,
+           packed_sweep.DEFAULT_TILE_ROWS if tile is None else tile)
+    _, nw = board.shape
+    bound_ms = sum(bench.sweep_bound(h, nw, k, rule, rate)["bound_ms"] for k in depths)
+    defines = packed_sweep.library_defines(rule, tile)
+    return key, depths, bound_ms, lambda: packed_sweep._launch(board, rule, depths[0], defines)
+
+
+def programs_phase(card):
+    """The program ledger of the three hand-written kernels on the card,
+    read over HTTP: the headline (65536², 120 epochs: 2 calls of 6 sweeps),
+    WireWorld at 16384² (20 epochs: 2 calls of 1 sweep) and bugs at 16384²
+    (10 epochs: 2 calls of 5 generations), each run twice in process behind
+    a ``MetricsServer`` with ``/programs`` and ``/cost``.  The first run
+    shows each family's compile bill; the ledger is then reset and the
+    second run checked: the key and one call per chunk, the launches of the
+    plan, cells = board × epochs, the device-seconds counter equal to the
+    family's seconds; each call's seconds at least 0.9× the event time of
+    its launches timed back to back, the rate at most 1.05× the rate at the
+    kernel's bound, and the seconds within the run's wall.  The ratio to the
+    bare launches' event rate is printed, not checked: for a call of one
+    launch it depends on the host's dispatch latency."""
+    import dataclasses
+
+    from akka_game_of_life_tpu_torch import bench
+    from akka_game_of_life_tpu_torch.obs import MetricsServer
+    from akka_game_of_life_tpu_torch.obs.catalog import install
+    from akka_game_of_life_tpu_torch.obs.metrics import MetricsRegistry
+    from akka_game_of_life_tpu_torch.obs.programs import get_programs, http_routes
+    from akka_game_of_life_tpu_torch.runtime.config import load_config
+
+    programs = get_programs()
+    metrics = install(MetricsRegistry())
+    seconds_c = metrics.counter("gol_program_device_seconds_total", "", ("family",))
+    server = MetricsServer(metrics, port=0, host="127.0.0.1",
+                           routes=http_routes(registry=programs))
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        for family, kernel, path, overrides in PROGRAMS_RUNS:
+            config = dataclasses.replace(
+                load_config(None if path is None else str(path), overrides), checkpoint_dir=None
+            )
+            epochs = config.max_epochs
+            chunks = -(-epochs // config.steps_per_call)
+            runs = {}
+            for rep in ("first", "checked"):
+                programs.reset()
+                programs.configure(node="chip_smoke", metrics=metrics)
+                counted_before = seconds_c.labels(family=family).value
+                zero_counts()
+                board, sim_kernel, tile, run_s = _ledger_run(config, f"programs_{family}_{rep}.log")
+                counts = read_counts()
+                status, listing = _http(base, "GET", "/programs")
+                check(status == 200, f"/programs answered {status}")
+                status, cost = _http(base, "GET", "/cost")
+                check(status == 200, f"/cost answered {status}")
+                runs[rep] = dict(
+                    counts=counts, run_s=run_s,
+                    records=[p for p in listing["programs"] if p["family"] == family],
+                    families=sorted({p["family"] for p in listing["programs"]}),
+                    cost=cost["families"].get(family, {}),
+                    counted=seconds_c.labels(family=family).value - counted_before,
+                )
+            key, depths, bound_ms, launch = _ledger_plan(
+                kernel, config, board, tile, card["int32_ops_per_s"])
+            launch_ms = bench.time_ms(launch, reps=20)
+            del board, launch
+            h, w = config.height, config.width
+            for rep, run in runs.items():
+                what = f"programs {family} ({rep} run)"
+                check(run["families"] == [family], f"{what}: families {run['families']}")
+                check([r["key"] for r in run["records"]] == [repr(key)],
+                      f"{what}: keys {[r['key'] for r in run['records']]}, expected {key!r}")
+                check(run["records"][0]["calls"] == chunks,
+                      f"{what}: {run['records'][0]['calls']} calls, expected {chunks}")
+                check(run["counts"][kernel] == len(depths) == sum(run["counts"].values()),
+                      f"{what}: launches {run['counts']}, expected {len(depths)} {kernel}")
+                check(run["cost"]["cells"] == float(h * w * epochs),
+                      f"{what}: cells {run['cost']['cells']} != {h * w * epochs}")
+                check(abs(run["counted"] - run["cost"]["seconds"]) <= 1e-9 + 1e-6 * run["cost"]["seconds"],
+                      f"{what}: device seconds counter {run['counted']} != {run['cost']['seconds']}")
+            got = runs["checked"]
+            seconds = got["cost"]["seconds"]
+            call_ms = seconds * 1e3 / chunks
+            launches_ms = len(depths) // chunks * launch_ms
+            check(call_ms >= PROGRAMS_UNDER_LAUNCHES * launches_ms,
+                  f"programs {family}: {call_ms:.4f} ms a call, under {PROGRAMS_UNDER_LAUNCHES} x "
+                  f"the {launches_ms:.4f} ms of its launches back to back: dispatch-only timing")
+            ledger_rate = got["cost"]["cell_updates_per_s"]
+            bound_rate = h * w * epochs / (bound_ms / 1e3)
+            check(ledger_rate <= PROGRAMS_OVER_BOUND * bound_rate,
+                  f"programs {family}: /cost rate {ledger_rate:.4g} over {PROGRAMS_OVER_BOUND} x "
+                  f"the rate at the bound, {bound_rate:.4g}")
+            check(seconds <= got["run_s"],
+                  f"programs {family}: {seconds:.6f} device seconds over the run's "
+                  f"{got['run_s']:.6f} s of wall")
+            kernel_rate = h * w * depths[0] / (launch_ms / 1e3)
+            emit(
+                "programs", family=family, kernel=kernel, simulation_kernel=sim_kernel,
+                config=f"{'' if path is None else path.name} {overrides}".strip(),
+                key=repr(key), calls=got["records"][0]["calls"], launches=got["counts"][kernel],
+                cells=got["cost"]["cells"], bytes=got["cost"]["bytes"], flops=got["cost"]["flops"],
+                compile_seconds_first_run=runs["first"]["records"][0]["compile_seconds"],
+                compile_seconds=got["records"][0]["compile_seconds"],
+                device_seconds=seconds, device_ms_per_call=call_ms,
+                device_seconds_first_run=runs["first"]["cost"]["seconds"],
+                kernel_ms_per_launch=launch_ms, launches_ms_per_call=launches_ms,
+                cell_updates_per_s=ledger_rate,
+                first_run_cell_updates_per_s=runs["first"]["cost"]["cell_updates_per_s"],
+                kernel_cell_updates_per_s=kernel_rate, share_of_kernel_rate=ledger_rate / kernel_rate,
+                bound_cell_updates_per_s=bound_rate, share_of_bound=ledger_rate / bound_rate,
+                run_s={rep: run["run_s"] for rep, run in runs.items()},
+                card=card["name_power"],
+            )
+    finally:
+        server.close()
+        programs.reset()
+
+
 # -- the banded-matmul stencil, the fast-forward, sparse stepping ----------------
 
 
@@ -1143,9 +1339,10 @@ def tune_phase(errors, rng, card):
 
 def tuned_headline(tune, headline, tmp: Path, card):
     """The headline under ``--kernel pallas --pallas-block-rows B``, B the
-    Conway tune's best tile that is not the default: every launch goes
-    through that variant's library, and the digests at every cadence epoch
-    equal the default tile's."""
+    Conway tune's best tile that is not the default: every library the
+    launches go through (``_checked_library``, which the multi-step callable
+    and ``_launch`` both take theirs from) is that variant's, and the
+    digests at every cadence epoch equal the default tile's."""
     from akka_game_of_life_tpu_torch.ops import packed_sweep
     from akka_game_of_life_tpu_torch.runtime import autotune
 
@@ -1153,13 +1350,13 @@ def tuned_headline(tune, headline, tmp: Path, card):
     points = tune["conway"]["points"]
     b = next(p["block_rows"] for p in points if p["block_rows"] != default)
     defines = []
-    real = packed_sweep._launch
+    real = packed_sweep._checked_library
 
-    def spy(words, rule, k, variant=None):
+    def spy(rule, variant):
         defines.append(variant)
-        return real(words, rule, k, variant)
+        return real(rule, variant)
 
-    packed_sweep._launch = spy
+    packed_sweep._checked_library = spy
     try:
         zero_counts()
         text, run_s = run_cli(
@@ -1169,7 +1366,7 @@ def tuned_headline(tune, headline, tmp: Path, card):
             "headline_tuned_tile.log",
         )
     finally:
-        packed_sweep._launch = real
+        packed_sweep._checked_library = real
     counts = read_counts()
     check(counts["packed_sweep"] == headline["sweeps"], f"tuned headline launches {counts}")
     check(set(defines) == {packed_sweep.library_defines("conway", b)},
@@ -3919,6 +4116,9 @@ def main() -> int:
     times.update(phase("mesh_timing", mesh_timing, card, rng, devices, dist["timing"]))
     times["tune"], tune_best = phase("tune_timing", tune_timing, card, tune)
     launches["tune"] = sum(run["launches"] for run in tune.values())
+    # Last: no later phase reads what the ledger's checks leave, and a
+    # failed check still fails the run once every other phase has run.
+    phase("programs", programs_phase, card)
     emit("done", seconds=time.perf_counter() - t_start, phase_seconds=phase_s,
          device_busy_share=busy["device_busy_share"], card=card["name_power"])
 

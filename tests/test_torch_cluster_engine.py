@@ -116,10 +116,23 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_chunk_registers_in_program_ledger():
+    """Each chunk is one ``worker_chunk`` call and, for a binary chunk of
+    two or more steps, one call of the packed sweep's ``pallas`` program
+    inside it: the port counts the inner program on every call, where JAX
+    traces it once under its outer jit."""
     from akka_game_of_life_tpu_torch.obs.programs import get_programs
 
+    def calls(family):
+        return get_programs().family_summary().get(family, {}).get("calls", 0)
+
     run = _torch_engine(resolve_rule("conway"), device="cpu")
-    before = get_programs().family_summary().get("worker_chunk", {}).get("calls", 0)
-    run(_slab(16, 32, 2), 2, 2)
+    before = {f: calls(f) for f in ("worker_chunk", "pallas")}
+    padded = _slab(16, 32, 2)  # 20 x 36 cells, padded to 2 words a row
+    for n in (1, 2):
+        run(padded, 2, 2)
+        assert calls("worker_chunk") == before["worker_chunk"] + n
+        assert calls("pallas") == before["pallas"] + n
     fam = get_programs().family_summary()["worker_chunk"]
-    assert fam["calls"] == before + 1 and fam["cells"] > 0
+    assert fam["cells"] > 0
+    keys = {p["key"] for p in get_programs().snapshot()["programs"] if p["family"] == "pallas"}
+    assert repr(("packed_multi_step", "conway", 2, packed_sweep.DEFAULT_TILE_ROWS)) in keys

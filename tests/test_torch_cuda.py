@@ -867,3 +867,73 @@ def test_serve_cluster_on_card_matches_cpu():
 
     for resident in (True, False):
         assert script("cuda", resident) == script("cpu", resident)
+
+
+def _headline_words():
+    g = torch.Generator(device="cuda").manual_seed(13)
+    return torch.randint(-(2**31), 2**31, (65536, 2048), generator=g, device="cuda",
+                         dtype=torch.int32)
+
+
+@pytest.mark.cuda
+def test_registered_sweep_adds_no_synchronisation():
+    """A registered 60-generation sweep of a 65536² board returns while the
+    stream is still busy: the ledger's events add no host wait."""
+    _need_gpu()
+    from akka_game_of_life_tpu_torch.obs.programs import get_programs
+
+    programs = get_programs()
+    programs.reset()
+    try:
+        words = _headline_words()
+        fn = packed_sweep.packed_multi_step_fn("conway", 60)
+        fn(words)  # the first call loads the library
+        torch.cuda.synchronize()
+        out = fn(words)
+        assert not torch.cuda.current_stream().query()
+        torch.cuda.synchronize()
+        fam = programs.family_summary()["pallas"]
+        assert fam["calls"] == 2 and fam["seconds"] > 0
+        assert torch.equal(out, packed_sweep.packed_multi_step_fn("conway", 60)(words))
+    finally:
+        programs.reset()
+
+
+@pytest.mark.cuda
+def test_registered_sweep_seconds_match_the_bare_kernels_events():
+    """The ledger's resolved seconds per call lie within 0.9-1.25x of a
+    CUDA-event time of the same six bare launches."""
+    _need_gpu()
+    from akka_game_of_life_tpu_torch.obs.programs import get_programs
+
+    programs = get_programs()
+    rule = resolve_rule("conway")
+    words = _headline_words()
+    depths = packed_sweep.plan_sweeps(60)
+    reps = 5
+    programs.reset()
+    try:
+        fn = packed_sweep.packed_multi_step_fn(rule, 60)
+        fn(words)
+        torch.cuda.synchronize()
+        programs.reset()
+        fn = packed_sweep.packed_multi_step_fn(rule, 60)
+        for _ in range(reps):
+            fn(words)
+        fam = programs.family_summary()["pallas"]
+        assert fam["calls"] == reps
+        ledger_ms = fam["seconds"] * 1e3 / reps
+    finally:
+        programs.reset()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        x = words
+        for k in depths:
+            x = packed_sweep._launch(x, rule, k)
+    stop.record()
+    torch.cuda.synchronize()
+    bare_ms = start.elapsed_time(stop) / reps
+    assert 0.9 <= ledger_ms / bare_ms <= 1.25, (ledger_ms, bare_ms)
