@@ -75,6 +75,7 @@ from akka_game_of_life_tpu_torch.runtime.netchaos import (
     NetworkChaos,
     wrap_channel,
 )
+from akka_game_of_life_tpu_torch.runtime.signals import interrupts_as_messages
 from akka_game_of_life_tpu_torch.runtime.tiles import Ring, TileId, TileLayout
 from akka_game_of_life_tpu_torch.runtime.wire import (
     Channel,
@@ -130,6 +131,9 @@ class _Tile:
 ENGINES = ("torch", "numpy", "swar", "actor", "actor-native")
 # The JAX package's device engine; the port's is ``torch``.
 _NOT_PORTED_ENGINES = ("jax",)
+# The marker a signal queues in the worker's inbox: run() raises the
+# KeyboardInterrupt when it reaches it (``signals.interrupts_as_messages``).
+_INTERRUPT = object()
 
 
 def _check_pallas(pallas: Optional[str]) -> None:
@@ -1031,19 +1035,11 @@ class BackendWorker:
             )
             self._reader.start()
         try:
-            while not self._stop.is_set():
-                msg = self._inbox.get()
-                if isinstance(msg, Exception):
-                    raise msg
-                if msg is None:
-                    self.stopped_reason = self.stopped_reason or "disconnected"
-                    break
-                if isinstance(msg, threading.Event):
-                    # A re-home's settle barrier (_settle): on to the serve
-                    # plane's FIFO, behind every frame dispatched before it.
-                    self.serve_plane.barrier(msg)
-                    continue
-                self._dispatch(msg)
+            # An interrupt is raised between frames, never inside one: a
+            # frame taken from the inbox is always dispatched whole (its
+            # ops are answered, so a SIGTERM drain can complete).
+            with interrupts_as_messages(lambda: self._inbox.put(_INTERRUPT)):
+                self._serve_frames()
             self._stop.set()
         except (OSError, ValueError) as e:
             # ValueError = a malformed frame from wire.recv (bad magic,
@@ -1063,6 +1059,24 @@ class BackendWorker:
             self._stop.set()
             raise
         return 0 if self.stopped_reason in ("shutdown", "drained") else 1
+
+    def _serve_frames(self) -> None:
+        """run()'s dispatch loop: until stopped, EOF or an interrupt."""
+        while not self._stop.is_set():
+            msg = self._inbox.get()
+            if msg is _INTERRUPT:
+                raise KeyboardInterrupt
+            if isinstance(msg, Exception):
+                raise msg
+            if msg is None:
+                self.stopped_reason = self.stopped_reason or "disconnected"
+                return
+            if isinstance(msg, threading.Event):
+                # A re-home's settle barrier (_settle): on to the serve
+                # plane's FIFO, behind every frame dispatched before it.
+                self.serve_plane.barrier(msg)
+                continue
+            self._dispatch(msg)
 
     def _serve_device(self):
         """The device the serve plane steps on: the torch engine's (the
@@ -2680,14 +2694,22 @@ def run_backend(
             stop_after,
         )
 
-        if worker.request_drain():
+        t_drain = time.monotonic()
+        past_bound = threading.Event()
+
+        def give_up() -> None:
+            past_bound.set()
+            worker.stop()
+
+        requested = worker.request_drain()
+        if requested:
             print(
                 f"backend {worker.name} draining: handing "
                 f"{len(worker.tiles)} tile(s) back",
                 flush=True,
             )
             try:
-                with stop_after(_DRAIN_TIMEOUT_S, worker.stop):
+                with stop_after(_DRAIN_TIMEOUT_S, give_up):
                     worker.run()
             except KeyboardInterrupt:
                 pass  # second signal: give up on the drain, leave now
@@ -2704,6 +2726,18 @@ def run_backend(
             # every other worker's.
             print(f"backend {worker.name} shut down mid-drain; leaving", flush=True)
             return 0
+        # Port-only: say why the drain failed and how long it ran.
+        why = (
+            f"past the {_DRAIN_TIMEOUT_S:g} s drain bound" if past_bound.is_set()
+            else "no drain requested" if not requested
+            else "stopped before DRAIN_COMPLETE"
+        )
+        print(
+            f"backend {worker.name} drain failed: stopped_reason="
+            f"{worker.stopped_reason} ({why}) after "
+            f"{time.monotonic() - t_drain:.3f} s draining; exit 130",
+            flush=True,
+        )
         return 130
     finally:
         if dumper is not None:

@@ -1934,9 +1934,12 @@ class Frontend:
                 m.drain_acked = True
                 self._m_drains.inc()
                 span = self._drain_spans.pop(m.name, None)
+                fields = {}
                 if span is not None:
                     span.set(outcome="drained").finish()
-                self.events.emit("member_drained", member=m.name)
+                    # Port-only: the drain's length, DRAIN_REQUEST to here.
+                    fields["seconds"] = round(time.monotonic() - span.t0_mono, 6)
+                self.events.emit("member_drained", member=m.name, **fields)
                 released.append(m)
         for m in released:
             print(f"member {m.name} drained", flush=True)

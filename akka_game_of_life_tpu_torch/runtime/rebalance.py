@@ -281,7 +281,13 @@ class Rebalancer:
         come first and empty the drainer lightest-shards-first
         (``weights`` = sessions per shard), so a draining worker is
         released in the fewest protocol rounds blocked behind big
-        exports.
+        exports.  In the port they are planned past the in-flight
+        budget, every movable shard of the drainer in one pass (the
+        loaded ones still spend it, so load-driven moves wait): the
+        budget bounds load-driven reshaping, while a drain is bounded by
+        what the drainer holds and must end within the worker's drain
+        bound (the JAX planner stops at the budget, so a drain there
+        moves one loaded shard at a time).
 
         ``replicas`` (shard → replica worker, from the serve plane's
         replication table) is a PLACEMENT CONSTRAINT: a shard and its
@@ -349,8 +355,9 @@ class Rebalancer:
             cands = [n for n in pool if n != banned] or pool
             return min(cands, key=lambda n: (loads[n], n))
 
-        # 1. Drain-driven: always planned, every pass (lightest shards
-        # first, so the free empties flip out immediately).
+        # 1. Drain-driven: always planned, every pass, past the budget
+        # (lightest shards first).  Loaded ones still spend it, so no
+        # load-driven move starts while a drain's are in flight.
         for m in members:
             if not (m.alive and m.draining):
                 continue
@@ -358,11 +365,13 @@ class Rebalancer:
                 if not loads:
                     break
                 dest = pick_dest(shard)
-                if dest is None or not charge(shard):
+                if dest is None:
                     continue
                 moves.append((shard, m.name, dest))
                 planned.add(shard)
                 loads[dest] += 1
+                if weights.get(shard, 0):
+                    budget -= 1
 
         # 2. Load-driven spreading (shard-count gap ≥ 2), cadenced.  The
         # (shard, dest) pair is chosen together: each candidate shard's
@@ -437,15 +446,17 @@ class Rebalancer:
         """(chunk key, source, dest) **resident tiled chunk** moves — the
         planner's third resource type.  Keys are (sid, (cy, cx)) tuples;
         every move is a real state transfer (export → certify → adopt
-        under the session's step barrier), so every move charges the
-        in-flight budget.  Same drain-always / load-cadenced policy shape
-        as :meth:`plan_shards`, with the chunk's replica avoided as a
-        destination (the no-co-residence constraint, falling back when it
-        is the last placeable member — a 2-worker drain must not wedge)."""
+        under the session's step barrier), so every load-driven move
+        charges the in-flight budget.  Same drain-always / load-cadenced
+        policy shape as :meth:`plan_shards`, with the chunk's replica
+        avoided as a destination (the no-co-residence constraint, falling
+        back when it is the last placeable member — a 2-worker drain must
+        not wedge).  As there, the port plans drain moves past the
+        budget, every movable chunk of the drainer in one pass (the serve
+        plane moves a session's chunks for one destination in one
+        protocol round); the JAX planner moves them one at a time."""
         moves: List[Tuple[tuple, str, str]] = []
         budget = self.max_inflight - len(self.inflight)
-        if budget <= 0:
-            return moves
         placeable = [m for m in members if m.alive and not m.draining]
         if not placeable:
             return moves
@@ -478,12 +489,13 @@ class Rebalancer:
             cands = [n for n in pool if n != banned] or pool
             return min(cands, key=lambda n: (loads[n], n))
 
-        # 1. Drain-driven: always planned, every pass.
+        # 1. Drain-driven: always planned, every pass, past the budget
+        # (which they still spend: no load-driven move starts meanwhile).
         for m in members:
             if not (m.alive and m.draining):
                 continue
             for key in movable(m.name):
-                if budget <= 0 or not loads:
+                if not loads:
                     break
                 dest = pick_dest(key)
                 if dest is None:

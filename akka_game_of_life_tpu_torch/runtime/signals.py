@@ -124,3 +124,49 @@ def mask_interrupts():
     finally:
         for sig, old in masked:
             signal.signal(sig, old)
+
+
+@contextlib.contextmanager
+def interrupts_as_messages(post):
+    """Deliver ^C/SIGTERM through ``post()`` for the duration of the block.
+
+    A handler that raises KeyboardInterrupt tears the main thread out of
+    whatever it is running: after a queue's ``get()`` has returned a frame
+    and before the frame is dispatched, or half-way through a dispatch.  A
+    loop that must lose no frame installs this around itself: the previous
+    handler still runs (the flight dump, the CLI's SIGTERM mapping), and the
+    KeyboardInterrupt it raises becomes a call of ``post``, which queues a
+    marker behind the frames already taken in; the loop raises the
+    interrupt when it reaches the marker.  ``post`` runs inside a signal
+    handler, so it must be reentrant (``queue.SimpleQueue.put`` is).
+    No-op off the main thread; SIG_DFL, SIG_IGN and C-installed handlers
+    are left as they are.
+    """
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def _make(prev):
+        def handler(signum, frame):
+            try:
+                prev(signum, frame)
+            except KeyboardInterrupt:
+                post()
+
+        return handler
+
+    installed = []
+    try:
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            prev = signal.getsignal(sig)
+            if callable(prev):
+                installed.append((sig, signal.signal(sig, _make(prev))))
+    except BaseException:
+        for sig, old in installed:
+            signal.signal(sig, old)
+        raise
+    try:
+        yield
+    finally:
+        for sig, old in installed:
+            signal.signal(sig, old)

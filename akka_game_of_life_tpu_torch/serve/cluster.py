@@ -125,6 +125,9 @@ OP_MAX_RETRIES = 4
 # Tile-chunk ops of a mega-board step are pure functions of their
 # operands: a worker loss mid-chunk replays the SAME chunk elsewhere.
 TILE_OP_RETRIES = 3
+# The port's worker times its half of a shard move in SHARD_STATE (seconds
+# waiting for the frozen sessions' jobs, seconds exporting them).
+_WORKER_SPLIT = ("freeze_wait_s", "export_s")
 
 
 class _Entry:
@@ -1303,12 +1306,13 @@ class ClusterServePlane:
             for t in self.tiled.values():
                 if t.mode == "resident" and not t.promoting:
                     self._assign_tiled_replicas_locked(t)
-            tiled_moves = []
-            for key, source, dest in self._plan_tiled_moves_locked(
+            # One protocol round per (session, source, destination).
+            tiled_moves: Dict[tuple, list] = {}
+            for (sid, c), source, dest in self._plan_tiled_moves_locked(
                 now, drain_only
             ):
-                mig = self.tiled_rebalancer.begin(key, source, dest, now)
-                tiled_moves.append((key, source, dest, mig.seq))
+                self.tiled_rebalancer.begin((sid, c), source, dest, now)
+                tiled_moves.setdefault((sid, source, dest), []).append(c)
             lag_events = {
                 s: self._lag_snapshot.get(s, 0.0)
                 for s in self._update_lag_locked(now)
@@ -1360,14 +1364,14 @@ class ClusterServePlane:
                     "seq": mig.seq,
                 })
             self._refresh_gauges_locked()
-        for key, source, dest, seq in tiled_moves:
-            # Each resident-chunk move runs on its own thread: it holds
+        for (sid, source, dest), chunks in tiled_moves.items():
+            # Each resident-chunk round runs on its own thread: it holds
             # the session's steplock across export → certify → adopt, so
             # the maintenance loop must not block behind it.
             threading.Thread(
-                target=self._migrate_tiled_chunk,
-                args=(key, source, dest, seq),
-                daemon=True, name=f"tiled-move-{key[0]}",
+                target=self._migrate_tiled_chunks,
+                args=(sid, chunks, source, dest),
+                daemon=True, name=f"tiled-move-{sid}",
             ).start()
         if self.events is not None:
             for shard, lag in sorted(lag_events.items()):
@@ -1449,10 +1453,14 @@ class ClusterServePlane:
         sessions) unfreezes."""
         shard = int(msg["shard"])
         seq = int(msg["seq"])
+        t_state = time.monotonic()
         with self._lock:
             mig = self.rebalancer.get(shard, seq)
             if mig is None or mig.source != member_name:
                 return  # stale frame from an aborted attempt
+            # The move's split (port-only; a JAX worker sends no times).
+            mig.split = {"prepare_s": t_state - mig.started}
+            mig.split.update({k: float(msg[k]) for k in _WORKER_SPLIT if k in msg})
         if msg.get("error"):
             self._abort_shard(mig, f"source: {msg['error']}")
             return
@@ -1483,6 +1491,8 @@ class ClusterServePlane:
             else:
                 mig.phase = "adopt"
                 mig.payload_sids = [p["sid"] for p in payloads]
+                mig.t_adopt = time.monotonic()
+                mig.split["certify_s"] = mig.t_adopt - t_state
                 # Submitted under the SAME lock acquisition that set the
                 # phase (RLock; _submit only enqueues): an abort racing
                 # this window must always see adopt_pending, or it could
@@ -1501,9 +1511,12 @@ class ClusterServePlane:
             self._abort_shard(mig, f"adopt failed: {p.error!r}")
             return
         flush: List[_Pending] = []
+        now = time.monotonic()
         with self._lock:
             if self.rebalancer.get(mig.tile, mig.seq) is not mig:
                 return
+            split = dict(mig.split, adopt_s=now - mig.t_adopt,
+                         seconds=now - mig.started)
             self.rebalancer.complete(mig.tile)
             self.shard_owner[mig.tile] = mig.dest
             self._rebuild_routes_locked()
@@ -1537,6 +1550,7 @@ class ClusterServePlane:
                 source=mig.source, dest=mig.dest,
                 sessions=len(getattr(mig, "payload_sids", [])),
                 replayed_ops=len(flush),
+                **{k: round(v, 6) for k, v in split.items()},
             )
 
     def _abort_shard(
@@ -2903,58 +2917,71 @@ class ClusterServePlane:
             drain_only=drain_only, replicas=replicas,
         )
 
-    def _migrate_tiled_chunk(self, key: tuple, source: str, dest: str,
-                             seq: int) -> None:
-        """Move one resident chunk, digest-certified, under the session's
-        steplock — a move can never interleave with an epoch barrier, so
-        a torn halo is unrepresentable (the next round's op simply aims
-        at the new owner)."""
-        sid, c = key
+    def _migrate_tiled_chunks(self, sid: str, chunks: list, source: str,
+                              dest: str) -> None:
+        """Move a session's resident chunks from ``source`` to ``dest``,
+        digest-certified, in one protocol round (one export, one adopt,
+        one drop) under the session's steplock — a move can never
+        interleave with an epoch barrier, so a torn halo is
+        unrepresentable (the next round's op simply aims at the new
+        owner).  Each chunk's in-flight record commits or aborts with the
+        round; a drain moves all of a session's chunks bound for one
+        destination this way (the JAX plane moves one chunk a round)."""
+        keys = [(sid, c) for c in chunks]
         with self._lock:
             t = self.tiled.get(sid)
+            migs = [self.tiled_rebalancer.inflight.get(k) for k in keys]
+        t_lock = time.monotonic()
+        started = min((m.started for m in migs if m is not None), default=t_lock)
+        split = {}  # the round's split, port-only event fields
         aborted = "setup"
         if t is not None and t.steplock.acquire(
             timeout=self.tiled_rebalancer.deadline_s
         ):
+            split["lock_wait_s"] = time.monotonic() - t_lock
             try:
-                aborted = self._migrate_tiled_chunk_held(
-                    t, key, source, dest, seq
+                aborted = self._migrate_tiled_chunks_held(
+                    t, sid, chunks, source, dest, split
                 )
             except BaseException as e:  # noqa: BLE001 — the in-flight
-                # record MUST resolve (abort), whatever broke
+                # records MUST resolve (abort), whatever broke
                 aborted = repr(e)
             finally:
                 t.steplock.release()
         now = time.monotonic()
         with self._lock:
-            if aborted is None:
-                self.tiled_rebalancer.complete(key)
-                self._m_chunk_migrations.inc()
-            else:
-                self.tiled_rebalancer.abort(key, now)
+            for key in keys:
+                if aborted is None:
+                    self.tiled_rebalancer.complete(key)
+                    self._m_chunk_migrations.inc()
+                else:
+                    self.tiled_rebalancer.abort(key, now)
         if self.events is not None:
-            if aborted is None:
-                self.events.emit(
-                    "serve_tiled_chunk_migrated", sid=sid,
-                    chunk=list(c), source=source, dest=dest,
-                )
-            else:
-                self.events.emit(
-                    "serve_tiled_chunk_migration_aborted", sid=sid,
-                    chunk=list(c), source=source, dest=dest,
-                    reason=aborted,
-                )
+            split["seconds"] = now - started
+            for c in chunks:
+                if aborted is None:
+                    self.events.emit(
+                        "serve_tiled_chunk_migrated", sid=sid,
+                        chunk=list(c), source=source, dest=dest,
+                        batch=len(chunks),
+                        **{k: round(v, 6) for k, v in split.items()},
+                    )
+                else:
+                    self.events.emit(
+                        "serve_tiled_chunk_migration_aborted", sid=sid,
+                        chunk=list(c), source=source, dest=dest,
+                        reason=aborted,
+                    )
 
-    def _migrate_tiled_chunk_held(self, t, key, source, dest,
-                                  seq) -> Optional[str]:
-        """The move body (steplock held).  Returns None on commit, else
-        the abort reason."""
-        sid, c = key
+    def _migrate_tiled_chunks_held(self, t, sid, chunks, source, dest,
+                                   split) -> Optional[str]:
+        """The round's body (steplock held).  Returns None on commit, else
+        the abort reason; notes its phases' seconds in ``split``."""
         with self._lock:
             if (
                 t.promoting
                 or self.tiled.get(sid) is not t
-                or t.owner.get(c) != source
+                or any(t.owner.get(c) != source for c in chunks)
             ):
                 return "stale"
             dm = self.membership.get(dest)
@@ -2963,39 +2990,47 @@ class ClusterServePlane:
         try:
             p = self._submit(
                 {"op": "tiled_export", "rid": 0, "sid": sid,
-                 "chunks": [list(c)]},
+                 "chunks": [list(c) for c in chunks]},
                 sid=sid, kind="tile_ctl", member=source,
             )
-            pay = self._await(p)["chunks"][0]
+            t0 = time.monotonic()
+            pays = self._await(p)["chunks"]
         except BaseException as e:  # noqa: BLE001 — abort, never raise
             return f"export: {e!r}"
-        lanes = odigest.digest_payload_np(
-            pay["state"], tuple(int(v) for v in pay["origin"]),
-            int(pay["width"]),
-        )
-        self._m_digest_checks.inc()
-        if [int(lanes[0]), int(lanes[1])] != [int(v) for v in pay["digest"]]:
-            self._m_digest_mismatches.inc()
-            if self.events is not None:
-                self.events.emit(
-                    "serve_tiled_digest_mismatch", sid=sid,
-                    chunk=list(c), source=source,
-                )
-            return "digest_mismatch"
+        t1 = time.monotonic()
+        split["export_s"] = t1 - t0
+        for c, pay in zip(chunks, pays):
+            lanes = odigest.digest_payload_np(
+                pay["state"], tuple(int(v) for v in pay["origin"]),
+                int(pay["width"]),
+            )
+            self._m_digest_checks.inc()
+            if [int(lanes[0]), int(lanes[1])] != [int(v) for v in pay["digest"]]:
+                self._m_digest_mismatches.inc()
+                if self.events is not None:
+                    self.events.emit(
+                        "serve_tiled_digest_mismatch", sid=sid,
+                        chunk=list(c), source=source,
+                    )
+                return "digest_mismatch"
+        t2 = time.monotonic()
+        split["certify_s"] = t2 - t1
         try:
             p = self._submit(
                 {"op": "tiled_adopt", "rid": 0, "sid": sid,
-                 "meta": t.meta(), "chunks": [pay]},
+                 "meta": t.meta(), "chunks": pays},
                 sid=sid, kind="tile_ctl", member=dest,
             )
             self._await(p)
         except BaseException as e:  # noqa: BLE001 — abort, never raise
             return f"adopt: {e!r}"
+        split["adopt_s"] = time.monotonic() - t2
         with self._lock:
             if self.tiled.get(sid) is not t or t.promoting:
                 return "stale"
-            t.owner[c] = dest
-            t.acked[c] = -1
+            for c in chunks:
+                t.owner[c] = dest
+                t.acked[c] = -1
             self._assign_tiled_replicas_locked(t)
             sm = self.membership.get(source)
             src_alive = sm is not None and sm.alive
@@ -3003,7 +3038,7 @@ class ClusterServePlane:
             try:
                 self._submit(
                     {"op": "tiled_chunk_drop", "rid": 0, "sid": sid,
-                     "chunks": [list(c)]},
+                     "chunks": [list(c) for c in chunks]},
                     sid=sid, kind="tile_ctl", member=source,
                     on_done=lambda _p: None,
                 )

@@ -1307,6 +1307,8 @@ class ServeWorkerPlane:
         could not promise that.  A freeze that cannot go idle in time
         reports the failure instead of exporting a snapshot an in-flight
         write-back could invalidate."""
+        import time
+
         shard = int(msg["shard"])
         seq = int(msg["seq"])
         sids = [
@@ -1317,7 +1319,13 @@ class ServeWorkerPlane:
         self._shard_frozen[shard] = sids
         self.router.freeze_sessions(sids)
         reply: dict = {"type": P.SHARD_STATE, "shard": shard, "seq": seq}
-        if not self.router.wait_idle(sids):
+        t0 = time.monotonic()
+        idle = self.router.wait_idle(sids)
+        t1 = time.monotonic()
+        # Port-only fields, the worker's half of the move's split (a JAX
+        # frontend reads neither).
+        reply["freeze_wait_s"] = round(t1 - t0, 6)
+        if not idle:
             # Unfreeze here too: the frontend will abort, but its abort
             # frame could race a crash — never leave sessions frozen on a
             # failure the worker itself detected.
@@ -1326,6 +1334,7 @@ class ServeWorkerPlane:
             reply["sessions"] = []
         else:
             reply["sessions"] = self.router.export_sessions(sids)
+            reply["export_s"] = round(time.monotonic() - t1, 6)
         try:
             self._send(reply)
         except (OSError, ValueError):

@@ -72,7 +72,8 @@ through its CLI:
   than the chunks' halo strips), a worker SIGKILLed in round 2 (no 404,
   every op answered, promoted boards and the mega-board certified at their
   resume epochs) and another SIGTERM-drained in round 3 (exit 0, no
-  admitted job lost, resident chunks re-homed digest-certified);
+  admitted job lost, resident chunks re-homed digest-certified; the
+  drain's seconds and moves read from the frontend's event log);
 - the frontend federation: three ``serve --serve-cluster on
   --frontend-seeds`` processes at the same defaults, one ``backend --device
   cuda`` each on card 0: they converge with no unowned slice, the 1024
@@ -122,13 +123,15 @@ JSON line; the ``kernels`` line and the card's name and power limit come
 before the last line, which is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero; without CUDA, or without the
 rest of the repository, it exits non-zero before printing any result.  Long
-output goes to ``chiprun_out/``.
+output goes to ``chiprun_out/``; a failed serve phase first prints the
+last lines of each of its processes' logs.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
 import io
 import json
 import multiprocessing
@@ -2252,6 +2255,30 @@ def _serving(tmp: Path, name: str, *flags):
     check("serve: drained" in text, f"{name} did not drain")
 
 
+TAIL_LINES = 40  # of each process's log, printed when a serve phase fails
+
+
+def _tails_on_failure(*logs):
+    """Decorate a phase: when it fails, print the last TAIL_LINES lines of
+    each named process log (``chiprun_out/<name>.log``) before the error,
+    so the failure reads from this script's own output."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            try:
+                return fn(*args, **kwargs)
+            except BaseException:
+                for name in logs:
+                    path = OUT / f"{name}.log"
+                    tail = (path.read_text(errors="replace").splitlines()[-TAIL_LINES:]
+                            if path.exists() else ["(no log)"])
+                    print(f"--- {fn.__name__} failed: the last {len(tail)} lines of "
+                          f"{path.name} ---", *tail, sep="\n", flush=True)
+                raise
+        return run
+    return wrap
+
+
 def _steps_ok(results, epoch, what):
     for status, doc in results:
         check(status == 200, f"{what}: {status} {doc}")
@@ -2284,6 +2311,7 @@ def _oracle_digest(spec):
     return odigest.format_digest(odigest.value(odigest.digest_dense_np(board)))
 
 
+@_tails_on_failure("serve")
 def serve_phase(tmp: Path, card):
     """The ``serve`` role on the card at the JAX package's defaults: 1024
     sessions (16,384,000 cells at most) created and stepped through
@@ -2676,6 +2704,54 @@ def _worker_metrics(ports):
             for name, port in ports.items()}
 
 
+def drain_split(events: Path, member: str) -> dict:
+    """A drain of ``member`` read from the cluster frontend's event log:
+    seconds from its DRAIN_REQUEST to its DRAIN_COMPLETE (None if it never
+    completed), then per kind of move off it (session shards, resident
+    chunks) the commits and aborts, the protocol rounds that carried them
+    (a chunk event names its round's ``batch``), the seconds from the
+    request to the first and last commit, the longest gap between commits,
+    and the sums over rounds and the longest round of each timed part
+    (``seconds`` from the planner's start to the commit and its phases:
+    the fields the port's frontend adds to ``serve_shard_migrated`` /
+    ``serve_tiled_chunk_migrated``; a log without them gives counts and
+    gaps only)."""
+    rows = [json.loads(line) for line in events.read_text().splitlines() if line.strip()]
+    t0 = next((r["t_mono"] for r in rows if r["event"] == "drain_requested"
+               and r.get("member") == member), None)
+    t1 = next((r["t_mono"] for r in rows if r["event"] == "member_drained"
+               and r.get("member") == member), None)
+    out = {"member": member, "seconds": None if t0 is None or t1 is None else t1 - t0}
+    for kind, done, aborted in (
+        ("shard", "serve_shard_migrated", "serve_shard_migration_aborted"),
+        ("chunk", "serve_tiled_chunk_migrated", "serve_tiled_chunk_migration_aborted"),
+    ):
+        mine = [r for r in rows if t0 is not None and r["t_mono"] >= t0
+                and r.get("source") == member]
+        moves = [r for r in mine if r["event"] == done]
+        reasons = {}
+        for r in mine:
+            if r["event"] == aborted:
+                reasons[str(r.get("reason"))[:60]] = reasons.get(str(r.get("reason"))[:60], 0) + 1
+        # A round of n chunks logs n events with the round's times: each
+        # counts 1/n toward the sums.
+        share = [1.0 / r.get("batch", 1) for r in moves]
+        d = {"moves": len(moves), "rounds": round(sum(share), 6), "aborts": reasons}
+        if moves:
+            times = [t0] + [r["t_mono"] for r in moves]
+            timed = sorted({k for r in moves for k in r if k == "seconds" or k.endswith("_s")})
+            d.update(first_s=times[1] - t0, last_s=times[-1] - t0,
+                     max_gap_s=max(b - a for a, b in zip(times, times[1:])),
+                     sum_s={k: sum(r.get(k, 0.0) * w for r, w in zip(moves, share))
+                            for k in timed})
+            if "seconds" in timed:
+                longest = max(moves, key=lambda r: r.get("seconds", 0.0))
+                d["longest"] = {k: longest[k] for k in timed if k in longest}
+        out[kind] = d
+    return out
+
+
+@_tails_on_failure("serve_cluster", *(f"serve_cluster_sw{i}" for i in range(SC_WORKERS)))
 def serve_cluster_phase(tmp: Path, card, single):
     """The serving cluster on the card: a ``serve --serve-cluster on``
     frontend process and SC_WORKERS ``backend --device cuda`` processes.
@@ -2690,7 +2766,10 @@ def serve_cluster_phase(tmp: Path, card, single):
     cells = sum(h * w for _, h, w, _, _ in specs)
     check(len(single) == len(specs), "the serve phase's digests")
     toml = tmp / "serve-cluster.toml"
-    toml.write_text(SC_TOML)
+    # The frontend's event log (drains, moves, promotions) beside its output.
+    events = OUT / "serve_cluster.events.jsonl"
+    events.unlink(missing_ok=True)
+    toml.write_text(SC_TOML + f'log_events = "{events}"\n')
     procs = {}
     try:
         t_boot = time.perf_counter()
@@ -2851,6 +2930,9 @@ def serve_cluster_phase(tmp: Path, card, single):
                 mega["id"], 2 * SC_ROUND_EPOCHS, lambda: procs[drained].send_signal(signal.SIGTERM),
                 len(sids) // 3)
             rc = procs[drained].wait(timeout=WAIT_S)
+            split = drain_split(events, drained)
+            print(f"serve_cluster drain of {drained}: rc {rc}, {json.dumps(split)}; "
+                  f"{card['name_power']}", flush=True)
             check(rc == 0, f"the drained worker exited {rc}")
             deadline = time.monotonic() + WAIT_S
             while not settled(SC_WORKERS - 2):
@@ -2910,7 +2992,8 @@ def serve_cluster_phase(tmp: Path, card, single):
               "promotion_latency": promo, "not_found": len(r2.not_found)},
         drain={"worker": drained, "rc": rc, "round_s": round3_s, "answers": r3.status,
                "chunks_held": held.get(drained, 0), "chunks_rehomed": moved,
-               "single_copy_shards": single_copy},
+               "single_copy_shards": single_copy, "seconds": split["seconds"],
+               "split": split},
         card=card["name_power"],
     )
 
@@ -3053,6 +3136,8 @@ def _fed_listing(bases, dead):
     return out
 
 
+@_tails_on_failure(*(f"serve_federation_{role}{i}" for role in ("fe", "w")
+                     for i in range(SF_FRONTENDS)))
 def serve_federation_phase(tmp: Path, card, single):
     """The frontend federation on the card: SF_FRONTENDS ``serve
     --serve-cluster on --frontend-seeds ...`` processes at the JAX serve

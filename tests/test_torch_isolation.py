@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it never imports JAX, Orbax or the JAX package.
 
 The machine with the GPU has no JAX, so neither the port nor its scripts
-(``chip_smoke.py``, ``node_loss_drill.py``) may import ``jax`` or
+(``chip_smoke.py``, ``node_loss_drill.py``, ``serve_drain_drill.py``) may import ``jax`` or
 ``akka_game_of_life_tpu``, even a numpy-only module of it.  Importing the port must not build a kernel either.
 """
 
@@ -15,7 +15,7 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "akka_game_of_life_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "node_loss_drill.py",
+    REPO / "chip_smoke.py", REPO / "node_loss_drill.py", REPO / "serve_drain_drill.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "orbax", "akka_game_of_life_tpu")
 

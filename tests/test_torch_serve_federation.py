@@ -1140,9 +1140,14 @@ def _child_env() -> dict:
 
 
 def _spawn_fe(i, cports, hports, seeds, env, logs):
+    # The workers start once both frontends listen, and a loaded host can
+    # take more than the default 5 s join window to import torch in them;
+    # ``serve`` takes the window from its config file.
+    toml = logs / "fe.toml"
+    toml.write_text('wait_for_backends_s = "60s"\n')
     return subprocess.Popen(
         [sys.executable, "-m", "akka_game_of_life_tpu_torch", "serve",
-         "--serve-cluster", "on", "--device", "cpu",
+         "--config", str(toml), "--serve-cluster", "on", "--device", "cpu",
          "--host", "127.0.0.1", "--port", str(cports[i]),
          "--metrics-port", str(hports[i]), "--min-backends", "1",
          "--serve-shards", str(N_SHARDS),

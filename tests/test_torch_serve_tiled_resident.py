@@ -207,8 +207,8 @@ def test_chunk_migration_racing_barrier_cannot_tear_halo():
                 dest = next(
                     m.name for m in fe.membership.alive_members() if m.name != source
                 )
-                mig = plane.tiled_rebalancer.begin((sid, c), source, dest, time.monotonic())
-            plane._migrate_tiled_chunk((sid, c), source, dest, mig.seq)
+                plane.tiled_rebalancer.begin((sid, c), source, dest, time.monotonic())
+            plane._migrate_tiled_chunks(sid, [c], source, dest)
             with plane._lock:
                 if t.owner[c] == dest:
                     moved += 1
