@@ -18,7 +18,9 @@ nothing), which makes digests of sparse boards cheap.
 
 The numpy twins (``*_np``), ``merge_lanes``, ``value``, ``format_digest``
 and ``BlockLaneCache`` are copies of the JAX package's;
-``digest_dense_batch`` folds a serving batch's per-board lanes.
+``digest_dense_batch`` folds a serving batch's per-board lanes, and
+``key_lanes_np`` / ``digest_keyed_np`` split a host tile's digest into its
+cell-free key table and one product.
 """
 
 from __future__ import annotations
@@ -198,6 +200,27 @@ def digest_dense_np(
                 lanes[lane] + int(mixed.sum(dtype=np.uint32))
             ) & 0xFFFFFFFF
     return np.asarray(lanes, dtype=np.uint32)
+
+
+def key_lanes_np(
+    shape: Tuple[int, int], origin: Tuple[int, int], width: int
+) -> np.ndarray:
+    """Both lanes' keys of a ``shape`` tile at global ``origin`` of a
+    ``width``-wide board, (2, h·w) uint32, so that
+    ``digest_keyed_np(keys, tile) == digest_dense_np(tile, origin, width)``.
+    The table depends on no cell: it can be made before the tile's state
+    exists, leaving one product a tile."""
+    h, w = shape
+    rows = (np.arange(h, dtype=np.uint32) + np.uint32(origin[0]))[:, None]
+    cols = (np.arange(w, dtype=np.uint32) + np.uint32(origin[1]))[None, :]
+    idx = (rows * np.uint32(width) + cols).ravel()
+    return np.stack([_fmix32_np(idx ^ np.uint32(seed)) for seed in LANE_SEEDS])
+
+
+def digest_keyed_np(keys: np.ndarray, tile: np.ndarray) -> np.ndarray:
+    """(2,) uint32 lanes of ``tile`` under its :func:`key_lanes_np` table:
+    Σ state · key per lane, wrapping mod 2³² in uint32 arithmetic."""
+    return keys @ np.asarray(tile, dtype=np.uint32).ravel()
 
 
 def digest_packed_np(words: np.ndarray, width: int) -> np.ndarray:

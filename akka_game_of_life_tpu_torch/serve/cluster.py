@@ -92,6 +92,8 @@ the re-homed workers' ``SHARD_HOME`` or by
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import itertools
 import threading
 import time
@@ -128,6 +130,19 @@ TILE_OP_RETRIES = 3
 # The port's worker times its half of a shard move in SHARD_STATE (seconds
 # waiting for the frozen sessions' jobs, seconds exporting them).
 _WORKER_SPLIT = ("freeze_wait_s", "export_s")
+# A resident-chunk move runs in rounds of at most this many chunks, each
+# its own hold of the session's steplock (export, certify, adopt), so a
+# step request waits out at most one round, never a whole drain.
+TILED_MOVE_ROUND_CHUNKS = 16
+# Between two rounds the mover lets the steps queued on the lock go first,
+# waiting at most this long for them to take it.
+TILED_HANDOFF_S = 0.25
+# Threads certifying a round's exported chunks (digest_payload_np's numpy
+# passes release the GIL on a 256² chunk).
+TILED_CERTIFY_THREADS = 4
+# A round's digest key tables are made before its hold, up to this many
+# cells a round (8 bytes a cell); past it the hold mixes the keys itself.
+TILED_CERTIFY_KEY_CELLS = 1 << 22
 
 
 class _Entry:
@@ -228,7 +243,8 @@ class _ResidentTiled:
     __slots__ = (
         "sid", "rule_s", "H", "W", "k", "ny", "nx", "tiles",
         "owner", "replica", "acked", "epoch", "lanes", "population",
-        "steplock", "promoting", "round_idx", "parked",
+        "steplock", "promoting", "round_idx", "parked", "waiting",
+        "turns",
     )
 
     def __init__(self, sid: str, rule_s: str, board: np.ndarray,
@@ -270,9 +286,41 @@ class _ResidentTiled:
         self.lanes = odigest.digest_dense_np(board)
         self.population = int((board == 1).sum())
         self.steplock = threading.Lock()
+        # Step requests blocked on the steplock, and the condition a chunk
+        # mover waits on to hand them the lock.
+        self.waiting = 0
+        self.turns = threading.Condition(threading.Lock())
         self.promoting = False
         self.round_idx = 0
         self.parked = False
+
+    @contextlib.contextmanager
+    def step_turn(self):
+        """Hold the steplock for one step request, counted in ``waiting``
+        until it is taken."""
+        with self.turns:
+            self.waiting += 1
+        try:
+            self.steplock.acquire()
+        finally:
+            with self.turns:
+                self.waiting -= 1
+                self.turns.notify_all()
+        try:
+            yield
+        finally:
+            self.steplock.release()
+
+    def hand_off(self, timeout: float) -> None:
+        """A chunk mover between two rounds (lock released): wait until
+        the step requests queued on the steplock have taken it or the
+        epoch has moved, at most ``timeout`` s.  ``threading.Lock`` is not
+        FIFO, so a mover re-acquiring at once could starve them."""
+        epoch = self.epoch
+        with self.turns:
+            self.turns.wait_for(
+                lambda: self.waiting == 0 or self.epoch != epoch, timeout
+            )
 
     def certified(self, chunks=None) -> int:
         """The epoch the session can provably resume at after losing
@@ -425,6 +473,9 @@ class ClusterServePlane:
         # own instance too — chunk moves must not contend with shard
         # moves for the in-flight budget.
         self.tiled_rebalancer = Rebalancer(config)
+        self._certify_pool = concurrent.futures.ThreadPoolExecutor(
+            TILED_CERTIFY_THREADS, thread_name_prefix="tiled-certify"
+        )
         self.tiled_resident = bool(config.serve_tiled_resident)
         self.tiled_snap_rounds = int(config.serve_tiled_resident_snapshot)
         # Request-trace propagation gate (one bool read on the hot path;
@@ -1306,7 +1357,7 @@ class ClusterServePlane:
             for t in self.tiled.values():
                 if t.mode == "resident" and not t.promoting:
                     self._assign_tiled_replicas_locked(t)
-            # One protocol round per (session, source, destination).
+            # One mover per (session, source, destination).
             tiled_moves: Dict[tuple, list] = {}
             for (sid, c), source, dest in self._plan_tiled_moves_locked(
                 now, drain_only
@@ -1365,9 +1416,9 @@ class ClusterServePlane:
                 })
             self._refresh_gauges_locked()
         for (sid, source, dest), chunks in tiled_moves.items():
-            # Each resident-chunk round runs on its own thread: it holds
-            # the session's steplock across export → certify → adopt, so
-            # the maintenance loop must not block behind it.
+            # Each resident-chunk mover runs on its own thread: its rounds
+            # hold the session's steplock across export → certify →
+            # adopt, so the maintenance loop must not block behind them.
             threading.Thread(
                 target=self._migrate_tiled_chunks,
                 args=(sid, chunks, source, dest),
@@ -2386,7 +2437,7 @@ class ClusterServePlane:
         (epoch barrier + halo aiming map), O(perimeter) peer strips on the
         workers' own wire, digest lanes only at barrier/final rounds —
         the frontend never touches cell state."""
-        with t.steplock:
+        with t.step_turn():
             with self._lock:
                 if t.promoting:
                     self._reject(
@@ -2920,61 +2971,149 @@ class ClusterServePlane:
     def _migrate_tiled_chunks(self, sid: str, chunks: list, source: str,
                               dest: str) -> None:
         """Move a session's resident chunks from ``source`` to ``dest``,
-        digest-certified, in one protocol round (one export, one adopt,
-        one drop) under the session's steplock — a move can never
-        interleave with an epoch barrier, so a torn halo is
-        unrepresentable (the next round's op simply aims at the new
-        owner).  Each chunk's in-flight record commits or aborts with the
-        round; a drain moves all of a session's chunks bound for one
-        destination this way (the JAX plane moves one chunk a round)."""
-        keys = [(sid, c) for c in chunks]
+        digest-certified, in rounds of at most ``TILED_MOVE_ROUND_CHUNKS``
+        (one export, one adopt, one drop each).  A round holds the
+        session's steplock across export → certify → adopt, so a move can
+        never interleave with an epoch barrier and a torn halo is
+        unrepresentable (the next step's op simply aims at the new
+        owners).  Before a round takes the lock, the source and the
+        destination have caught up with their op lanes
+        (:meth:`_lanes_caught_up`), so the hold does not wait out their
+        backlogs.  Between rounds the lock goes first
+        to the steps queued on it, which step the board with some chunks
+        moved and the rest not, as the JAX plane does after each of its
+        one-chunk moves.  A round commits its own chunks' in-flight
+        records; once a round aborts, the later ones are not tried and
+        their records abort with its reason (the next planner pass
+        re-plans them)."""
         with self._lock:
             t = self.tiled.get(sid)
-            migs = [self.tiled_rebalancer.inflight.get(k) for k in keys]
-        t_lock = time.monotonic()
-        started = min((m.started for m in migs if m is not None), default=t_lock)
-        split = {}  # the round's split, port-only event fields
-        aborted = "setup"
-        if t is not None and t.steplock.acquire(
-            timeout=self.tiled_rebalancer.deadline_s
-        ):
-            split["lock_wait_s"] = time.monotonic() - t_lock
-            try:
-                aborted = self._migrate_tiled_chunks_held(
-                    t, sid, chunks, source, dest, split
+            migs = [self.tiled_rebalancer.inflight.get((sid, c)) for c in chunks]
+        # A round's ``seconds`` run from the planner's start (the first)
+        # or the previous round's end to its own end.
+        started = min((m.started for m in migs if m is not None),
+                      default=time.monotonic())
+        aborted = None if t is not None else "setup"
+        for i in range(0, len(chunks), TILED_MOVE_ROUND_CHUNKS):
+            batch = chunks[i:i + TILED_MOVE_ROUND_CHUNKS]
+            split = {}  # the round's split, port-only event fields
+            if aborted is None:
+                if i:
+                    t.hand_off(TILED_HANDOFF_S)
+                aborted = self._lanes_caught_up(sid, (source, dest))
+            if aborted is None:
+                aborted = self._migrate_tiled_round(t, sid, batch, source,
+                                                    dest, split)
+            now = time.monotonic()
+            if aborted is not None:
+                with self._lock:
+                    for c in batch:
+                        self.tiled_rebalancer.abort((sid, c), now)
+            if self.events is not None:
+                split["seconds"] = now - started
+                for c in batch:
+                    if aborted is None:
+                        self.events.emit(
+                            "serve_tiled_chunk_migrated", sid=sid,
+                            chunk=list(c), source=source, dest=dest,
+                            batch=len(batch),
+                            **{k: round(v, 6) for k, v in split.items()},
+                        )
+                    else:
+                        self.events.emit(
+                            "serve_tiled_chunk_migration_aborted", sid=sid,
+                            chunk=list(c), source=source, dest=dest,
+                            reason=aborted,
+                        )
+            started = now
+
+    def _lanes_caught_up(self, sid, members) -> Optional[str]:
+        """Wait, holding no lock, until each of ``members`` has run every
+        op queued to it so far: a ``tiled_fetch`` of no chunk answers only
+        then (a member's op lane runs in order; at a drain's start the
+        source's holds the shard prepares, the destination's their
+        adopts).  The round's export and adopt, sent under the steplock,
+        then find no backlog ahead of them.  Returns None, else the abort
+        reason."""
+        try:
+            pends = [
+                self._submit(
+                    {"op": "tiled_fetch", "rid": 0, "sid": sid, "chunks": []},
+                    sid=sid, kind="tile_ctl", member=m,
                 )
-            except BaseException as e:  # noqa: BLE001 — the in-flight
-                # records MUST resolve (abort), whatever broke
-                aborted = repr(e)
-            finally:
-                t.steplock.release()
-        now = time.monotonic()
-        with self._lock:
-            for key in keys:
-                if aborted is None:
-                    self.tiled_rebalancer.complete(key)
-                    self._m_chunk_migrations.inc()
-                else:
-                    self.tiled_rebalancer.abort(key, now)
-        if self.events is not None:
-            split["seconds"] = now - started
-            for c in chunks:
-                if aborted is None:
+                for m in members
+            ]
+            for p in pends:
+                self._await(p)
+        except BaseException as e:  # noqa: BLE001 — abort, never raise
+            return f"catch_up: {e!r}"
+        return None
+
+    def _migrate_tiled_round(self, t, sid, chunks, source, dest,
+                             split) -> Optional[str]:
+        """One round of a move under the session's steplock.  Returns None
+        once its chunks are committed, else the abort reason; notes in
+        ``split`` the seconds waited for the lock and held it.  The
+        chunks' digest key tables, which depend on no cell, are made
+        before the hold."""
+        geo = [t.tiles.get(c) for c in chunks]  # (gy, gx, th, tw)
+        keys = None
+        if all(geo) and sum(g[2] * g[3] for g in geo) <= TILED_CERTIFY_KEY_CELLS:
+            keys = {
+                c: ((gy, gx), t.W, (th, tw),
+                    odigest.key_lanes_np((th, tw), (gy, gx), t.W))
+                for c, (gy, gx, th, tw) in zip(chunks, geo)
+            }
+        t_lock = time.monotonic()
+        if not t.steplock.acquire(timeout=self.tiled_rebalancer.deadline_s):
+            return "setup"
+        held = time.monotonic()
+        split["lock_wait_s"] = held - t_lock
+        try:
+            return self._migrate_tiled_chunks_held(
+                t, sid, chunks, source, dest, split, keys
+            )
+        except BaseException as e:  # noqa: BLE001 — the in-flight
+            # records MUST resolve (abort), whatever broke
+            return repr(e)
+        finally:
+            t.steplock.release()
+            split["hold_s"] = time.monotonic() - held
+
+    def _certify_tiled_round(self, sid, chunks, pays, source,
+                             keys=None) -> bool:
+        """Certify a round's exported chunks against the lanes their
+        source sent, on the plane's certification threads.  A chunk whose
+        payload has the origin, width and shape of its table in ``keys``
+        (chunk -> (origin, width, shape, table)) takes one product with
+        it; any other is mixed in full.  The verdict is the serial loop's:
+        chunks count as checked in chunk order up to the first mismatch,
+        which alone names the mismatch event."""
+        def lanes_of(c, pay):
+            origin = tuple(int(v) for v in pay["origin"])
+            width = int(pay["width"])
+            key = (keys or {}).get(c)
+            if key is not None and key[:3] == (
+                origin, width, tuple(int(v) for v in pay["state"]["shape"])
+            ):
+                return odigest.digest_keyed_np(key[3], unpack_tile(pay["state"]))
+            return odigest.digest_payload_np(pay["state"], origin, width)
+
+        lanes = self._certify_pool.map(lanes_of, chunks, pays)
+        for c, pay, got in zip(chunks, pays, lanes):
+            self._m_digest_checks.inc()
+            if [int(got[0]), int(got[1])] != [int(v) for v in pay["digest"]]:
+                self._m_digest_mismatches.inc()
+                if self.events is not None:
                     self.events.emit(
-                        "serve_tiled_chunk_migrated", sid=sid,
-                        chunk=list(c), source=source, dest=dest,
-                        batch=len(chunks),
-                        **{k: round(v, 6) for k, v in split.items()},
+                        "serve_tiled_digest_mismatch", sid=sid,
+                        chunk=list(c), source=source,
                     )
-                else:
-                    self.events.emit(
-                        "serve_tiled_chunk_migration_aborted", sid=sid,
-                        chunk=list(c), source=source, dest=dest,
-                        reason=aborted,
-                    )
+                return False
+        return True
 
     def _migrate_tiled_chunks_held(self, t, sid, chunks, source, dest,
-                                   split) -> Optional[str]:
+                                   split, keys=None) -> Optional[str]:
         """The round's body (steplock held).  Returns None on commit, else
         the abort reason; notes its phases' seconds in ``split``."""
         with self._lock:
@@ -2999,20 +3138,8 @@ class ClusterServePlane:
             return f"export: {e!r}"
         t1 = time.monotonic()
         split["export_s"] = t1 - t0
-        for c, pay in zip(chunks, pays):
-            lanes = odigest.digest_payload_np(
-                pay["state"], tuple(int(v) for v in pay["origin"]),
-                int(pay["width"]),
-            )
-            self._m_digest_checks.inc()
-            if [int(lanes[0]), int(lanes[1])] != [int(v) for v in pay["digest"]]:
-                self._m_digest_mismatches.inc()
-                if self.events is not None:
-                    self.events.emit(
-                        "serve_tiled_digest_mismatch", sid=sid,
-                        chunk=list(c), source=source,
-                    )
-                return "digest_mismatch"
+        if not self._certify_tiled_round(sid, chunks, pays, source, keys):
+            return "digest_mismatch"
         t2 = time.monotonic()
         split["certify_s"] = t2 - t1
         try:
@@ -3031,6 +3158,8 @@ class ClusterServePlane:
             for c in chunks:
                 t.owner[c] = dest
                 t.acked[c] = -1
+                self.tiled_rebalancer.complete((sid, c))
+                self._m_chunk_migrations.inc()
             self._assign_tiled_replicas_locked(t)
             sm = self.membership.get(source)
             src_alive = sm is not None and sm.alive
@@ -3184,6 +3313,7 @@ class ClusterServePlane:
             self._wake.set()
         for p in doomed:
             self._resolve(p, error=RuntimeError("router is closed"))
+        self._certify_pool.shutdown(wait=False, cancel_futures=True)
         self._flusher.join(timeout=5)
 
 

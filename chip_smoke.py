@@ -1510,7 +1510,7 @@ def headline_interrupt(headline, tmp: Path, card):
         lines: "queue.Queue[str]" = queue.Queue()
         threading.Thread(target=_reader, args=(proc, OUT / "headline_interrupt.log", lines),
                          daemon=True).start()
-        _await_line(lines, r"^epoch 180: pop=", time.monotonic() + WAIT_S, "epoch 180")
+        _await_line(lines, r"^epoch 180: pop=", time.monotonic() + WAIT_S, "epoch 180", proc)
         first = ckpt / f"ckpt_{120:012d}.npz"
         deadline = time.monotonic() + WAIT_S
         while not first.exists():
@@ -2010,13 +2010,24 @@ def _reader(proc, log_path: Path, lines: "queue.Queue[str]"):
             lines.put(line)
 
 
-def _await_line(lines, pattern, deadline: float, what: str):
+def _await_line(lines, pattern, deadline: float, what: str, proc=None):
+    """The first line matching ``pattern``.  With the child ``proc`` given,
+    fail as soon as it has exited without printing it, and at the deadline
+    abort it (SIGABRT: the faulthandler writes its threads' stacks into its
+    log) before failing."""
     while True:
         left = deadline - time.monotonic()
+        if left <= 0 and proc is not None and proc.poll() is None:
+            proc.send_signal(signal.SIGABRT)
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                proc.wait(timeout=10)
+            time.sleep(1.0)  # the reader copies the stacks to the log
         check(left > 0, f"timed out waiting for {what}")
         try:
             line = lines.get(timeout=min(left, 1.0))
         except queue.Empty:
+            check(proc is None or proc.poll() is None,
+                  f"{what}: the process exited {proc and proc.returncode} first")
             continue
         m = re.search(pattern, line)
         if m:
@@ -2055,7 +2066,7 @@ def cluster_node_loss(toml: Path, want, tmp: Path, card):
                          daemon=True).start()
         t0 = time.perf_counter()
         port = int(_await_line(fe_lines, r"frontend listening on \S+:(\d+)",
-                               time.monotonic() + WAIT_S, "the frontend's port").group(1))
+                               time.monotonic() + WAIT_S, "the frontend's port", fe).group(1))
         backends = []
         for i in range(CLUSTER_WORKERS):
             be = subprocess.Popen(
@@ -2228,7 +2239,7 @@ def _start_serve(tmp: Path, name: str, *flags):
     )
     lines: "queue.Queue[str]" = queue.Queue()
     threading.Thread(target=_reader, args=(proc, OUT / f"{name}.log", lines), daemon=True).start()
-    m = _await_line(lines, r"on :(\d+)", time.monotonic() + WAIT_S, f"{name} banner")
+    m = _await_line(lines, r"on :(\d+)", time.monotonic() + WAIT_S, f"{name} banner", proc)
     return proc, f"http://127.0.0.1:{m.group(1)}", lines
 
 
@@ -2564,7 +2575,7 @@ class _Traffic:
     """One traffic round's client ledger: answers by status, the 404s on
     admitted sessions, the resume points read in a failover window and the
     client-observed promotion latency (first 429 ``failover`` to the next
-    200) per session."""
+    200) per session, and the seconds of each mega-board step request."""
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -2574,6 +2585,7 @@ class _Traffic:
         self.resumed = {}  # key -> [(epoch, digest)] read in a failover window
         self.latency = []
         self.failures = []
+        self.mega_s = []
 
     def note(self, status):
         with self.lock:
@@ -2588,8 +2600,12 @@ def _step_through_failover(base, key, sid, start, target, chunk, traffic, mega=F
     from there.  Every call has a timeout, so a hang fails the phase."""
     epoch, t_fail = start, None
     while epoch < target:
+        t0 = time.perf_counter()
         status, doc = _http(base, "POST", f"/boards/{sid}/step",
                             {"steps": min(chunk, target - epoch)})
+        if mega:
+            with traffic.lock:
+                traffic.mega_s.append(time.perf_counter() - t0)
         traffic.note(status)
         if status == 200:
             epoch = int(doc["epoch"])
@@ -2704,18 +2720,27 @@ def _worker_metrics(ports):
             for name, port in ports.items()}
 
 
+def spread(seconds) -> dict:
+    """p50, max and count of a list of request seconds."""
+    xs = sorted(seconds)
+    return {"p50_s": xs[len(xs) // 2] if xs else None, "max_s": xs[-1] if xs else None,
+            "n": len(xs)}
+
+
 def drain_split(events: Path, member: str) -> dict:
     """A drain of ``member`` read from the cluster frontend's event log:
     seconds from its DRAIN_REQUEST to its DRAIN_COMPLETE (None if it never
     completed), then per kind of move off it (session shards, resident
     chunks) the commits and aborts, the protocol rounds that carried them
-    (a chunk event names its round's ``batch``), the seconds from the
-    request to the first and last commit, the longest gap between commits,
-    and the sums over rounds and the longest round of each timed part
-    (``seconds`` from the planner's start to the commit and its phases:
-    the fields the port's frontend adds to ``serve_shard_migrated`` /
-    ``serve_tiled_chunk_migrated``; a log without them gives counts and
-    gaps only)."""
+    (a chunk event names its round's ``batch``), in all and per
+    destination, the seconds from the request to the first and last
+    commit, the longest gap between commits, and the sums over rounds
+    (``sum_s``), the longest of each timed part (``max_s``) and the
+    longest round (``seconds`` from the planner's start or the previous
+    round's end to the commit, and its phases: ``hold_s`` is a chunk
+    round's hold of the session's steplock; the fields the port's frontend
+    adds to ``serve_shard_migrated`` / ``serve_tiled_chunk_migrated``; a
+    log without them gives counts and gaps only)."""
     rows = [json.loads(line) for line in events.read_text().splitlines() if line.strip()]
     t0 = next((r["t_mono"] for r in rows if r["event"] == "drain_requested"
                and r.get("member") == member), None)
@@ -2736,14 +2761,22 @@ def drain_split(events: Path, member: str) -> dict:
         # A round of n chunks logs n events with the round's times: each
         # counts 1/n toward the sums.
         share = [1.0 / r.get("batch", 1) for r in moves]
-        d = {"moves": len(moves), "rounds": round(sum(share), 6), "aborts": reasons}
+        d = {"moves": len(moves), "rounds": round(sum(share), 6), "aborts": reasons,
+             "by_dest": {}}
+        for r, w in zip(moves, share):
+            to = d["by_dest"].setdefault(r.get("dest"), {"moves": 0, "rounds": 0.0})
+            to["moves"] += 1
+            to["rounds"] += w
+        for to in d["by_dest"].values():
+            to["rounds"] = round(to["rounds"], 6)
         if moves:
             times = [t0] + [r["t_mono"] for r in moves]
             timed = sorted({k for r in moves for k in r if k == "seconds" or k.endswith("_s")})
             d.update(first_s=times[1] - t0, last_s=times[-1] - t0,
                      max_gap_s=max(b - a for a, b in zip(times, times[1:])),
                      sum_s={k: sum(r.get(k, 0.0) * w for r, w in zip(moves, share))
-                            for k in timed})
+                            for k in timed},
+                     max_s={k: max(r.get(k, 0.0) for r in moves) for k in timed})
             if "seconds" in timed:
                 longest = max(moves, key=lambda r: r.get("seconds", 0.0))
                 d["longest"] = {k: longest[k] for k in timed if k in longest}
@@ -2761,7 +2794,11 @@ def serve_cluster_phase(tmp: Path, card, single):
     O(perimeter)); round 2 SIGKILLs a worker (zero 404s, every op answered,
     promoted sessions certified at their resume epochs, the mega-board
     resumed at its certified epoch); round 3 SIGTERM-drains another (rc 0,
-    no admitted job lost, resident chunks re-homed digest-certified)."""
+    no admitted job lost, resident chunks re-homed digest-certified in
+    rounds of at most TILED_MOVE_ROUND_CHUNKS).  The mega-board's step
+    requests are timed in each round."""
+    from akka_game_of_life_tpu_torch.serve.cluster import TILED_MOVE_ROUND_CHUNKS
+
     specs = serve_specs()
     cells = sum(h * w for _, h, w, _, _ in specs)
     check(len(single) == len(specs), "the serve phase's digests")
@@ -2770,7 +2807,7 @@ def serve_cluster_phase(tmp: Path, card, single):
     events = OUT / "serve_cluster.events.jsonl"
     events.unlink(missing_ok=True)
     toml.write_text(SC_TOML + f'log_events = "{events}"\n')
-    procs = {}
+    procs, reserved = {}, {}
     try:
         t_boot = time.perf_counter()
         fe, fe_lines = _start_proc(_port_cli(
@@ -2778,17 +2815,22 @@ def serve_cluster_phase(tmp: Path, card, single):
             "--metrics-port", "0", "--min-backends", str(SC_WORKERS)), "serve_cluster", tmp)
         procs["frontend"] = fe
         deadline = time.monotonic() + WAIT_S
-        port = _await_line(fe_lines, r"listening on \S+:(\d+)", deadline, "the cluster port").group(1)
+        port = _await_line(fe_lines, r"listening on \S+:(\d+)", deadline, "the cluster port",
+                           fe).group(1)
         names = [f"sw{i}" for i in range(SC_WORKERS)]
-        ports = {name: _free_port() for name in names}  # each worker's /metrics
+        # Each worker's /metrics, held until the worker has bound it.
+        reserved.update((name, _reserve_port()) for name in names)
+        ports = {name: sock.getsockname()[1] for name, sock in reserved.items()}
         worker_lines = {}
         for name in names:
             procs[name], worker_lines[name] = _start_proc(_port_cli(
                 "backend", "--port", port, "--name", name, "--device", SC_DEVICE,
                 "--metrics-port", str(ports[name])), f"serve_cluster_{name}", tmp)
         for name, lines in worker_lines.items():
-            _await_line(lines, r"metrics on :(\d+)", deadline, f"{name} metrics")
-        http_port = _await_line(fe_lines, r"on :(\d+) ", deadline, "the /boards port").group(1)
+            _await_line(lines, r"metrics on :(\d+)", deadline, f"{name} metrics", procs[name])
+            reserved.pop(name).close()
+        http_port = _await_line(fe_lines, r"on :(\d+) ", deadline, "the /boards port",
+                                fe).group(1)
         base = f"http://127.0.0.1:{http_port}"
         boot_s = time.perf_counter() - t_boot
         health = _http(base, "GET", "/healthz")[1]["serve"]
@@ -2933,7 +2975,19 @@ def serve_cluster_phase(tmp: Path, card, single):
             split = drain_split(events, drained)
             print(f"serve_cluster drain of {drained}: rc {rc}, {json.dumps(split)}; "
                   f"{card['name_power']}", flush=True)
+            # Round 1: the mega-board's rounds alone; 2: the kill; 3: the drain.
+            mega_requests = {"round1": spread(round_s), "round2": spread(r2.mega_s),
+                             "round3": spread(r3.mega_s)}
+            print("serve_cluster mega-board step requests (client s): " + ", ".join(
+                f"{r} p50 {d['p50_s']} max {d['max_s']} (n {d['n']})"
+                for r, d in mega_requests.items()) + f"; {card['name_power']}", flush=True)
             check(rc == 0, f"the drained worker exited {rc}")
+            # A chunk round carries at most TILED_MOVE_ROUND_CHUNKS chunks,
+            # and the drain plans all of the drainer's chunks in one pass.
+            for to, d in split["chunk"]["by_dest"].items():
+                want = -(-d["moves"] // TILED_MOVE_ROUND_CHUNKS)
+                check(round(d["rounds"]) == want and abs(d["rounds"] - want) < 1e-6,
+                      f"{d['moves']} chunks to {to} in {d['rounds']} rounds, not {want}")
             deadline = time.monotonic() + WAIT_S
             while not settled(SC_WORKERS - 2):
                 check(time.monotonic() < deadline, "the drain never settled")
@@ -2968,6 +3022,8 @@ def serve_cluster_phase(tmp: Path, card, single):
         check(procs[survivor].wait(timeout=60) == 0,
               f"the surviving worker exited {procs[survivor].returncode}")
     finally:
+        for sock in reserved.values():
+            sock.close()
         for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
@@ -2993,7 +3049,11 @@ def serve_cluster_phase(tmp: Path, card, single):
         drain={"worker": drained, "rc": rc, "round_s": round3_s, "answers": r3.status,
                "chunks_held": held.get(drained, 0), "chunks_rehomed": moved,
                "single_copy_shards": single_copy, "seconds": split["seconds"],
+               "chunk_rounds": split["chunk"]["rounds"],
+               "hold_max_s": split["chunk"].get("max_s", {}).get("hold_s"),
+               "hold_sum_s": split["chunk"].get("sum_s", {}).get("hold_s"),
                "split": split},
+        mega_requests=mega_requests,
         card=card["name_power"],
     )
 
@@ -3154,9 +3214,11 @@ def serve_federation_phase(tmp: Path, card, single):
     specs = serve_specs()
     n_fe = SF_FRONTENDS
     check(len(single) == len(specs), "the serve phase's digests")
-    cports = [_free_port() for _ in range(n_fe)]
-    hports = [_free_port() for _ in range(n_fe)]
-    wports = [_free_port() for _ in range(n_fe)]
+    # Each frontend's cluster and HTTP ports and each worker's /metrics,
+    # held until the process that serves them has bound them.
+    held = [_reserve_port() for _ in range(3 * n_fe)]
+    cports, hports, wports = (
+        [sock.getsockname()[1] for sock in held[i * n_fe:(i + 1) * n_fe]] for i in range(3))
     seeds = ",".join(f"127.0.0.1:{p}" for p in cports)
     bases = [f"http://127.0.0.1:{p}" for p in hports]
     names = [f"127.0.0.1:{p}" for p in cports]
@@ -3175,14 +3237,20 @@ def serve_federation_phase(tmp: Path, card, single):
                 "--frontend-seeds", seeds), f"serve_federation_fe{i}", tmp)
         deadline = time.monotonic() + WAIT_S
         for i in range(n_fe):
-            _await_line(fe_lines[i], r"listening on \S+:(\d+)", deadline, f"frontend {i}'s port")
+            _await_line(fe_lines[i], r"listening on \S+:(\d+)", deadline, f"frontend {i}'s port",
+                        procs[f"fe{i}"])
         w_lines = {}
         for i in range(n_fe):
             procs[f"w{i}"], w_lines[i] = _start_proc(_port_cli(
                 "backend", "--port", str(cports[i]), "--name", f"fw{i}", "--device", SC_DEVICE,
                 "--metrics-port", str(wports[i])), f"serve_federation_w{i}", tmp)
         for i in range(n_fe):
-            _await_line(w_lines[i], r"joined", deadline, f"worker {i} joined")
+            _await_line(w_lines[i], r"joined", deadline, f"worker {i} joined", procs[f"w{i}"])
+        for i in range(n_fe):  # each frontend's /boards is bound before its first join
+            _await_line(fe_lines[i], r" on :(\d+) ", deadline, f"frontend {i}'s HTTP port",
+                        procs[f"fe{i}"])
+        for sock in held:
+            sock.close()
         boot_s = time.perf_counter() - t_boot
 
         # -- convergence: every frontend sees the others and no slice unowned --
@@ -3594,6 +3662,19 @@ def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         return sock.getsockname()[1]
+
+
+def _reserve_port():
+    """A free port held for a child's server until :meth:`close`: bound with
+    SO_REUSEADDR and not listening, so the child's server (which sets
+    SO_REUSEADDR) binds it while no bind to port 0 or outgoing connection
+    on this host can take it first.  ``.getsockname()[1]`` is the port."""
+    import socket
+
+    sock = socket.socket()
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    sock.bind(("127.0.0.1", 0))
+    return sock
 
 
 def _run_pair(jobs, tmp: Path):

@@ -54,6 +54,23 @@ def test_digest_dense_matches(states, row0, col0, width):
     )
 
 
+@pytest.mark.parametrize(
+    "shape,states,origin,width",
+    [((1, 1), 2, (0, 0), 1), ((13, 37), 4, (3, 11), 1000), ((64, 64), 2, (4032, 4032), 4096),
+     ((40, 24), 256, (65500, 65000), 65536)],
+)
+def test_keyed_digest_matches(shape, states, origin, width):
+    """A tile's digest as its cell-free key table times its cells equals
+    the JAX package's host digest of the tile, at any origin and width."""
+    rng = np.random.default_rng(states + shape[0])
+    tile = rng.integers(0, states, size=shape, dtype=np.uint8)
+    keys = tdig.key_lanes_np(shape, origin, width)
+    assert keys.shape == (2, shape[0] * shape[1]) and keys.dtype == np.uint32
+    got = tdig.digest_keyed_np(keys, tile)
+    assert got.dtype == np.uint32
+    np.testing.assert_array_equal(got, jdig.digest_dense_np(tile, origin, width))
+
+
 def test_packed_equals_dense_of_unpacked():
     w = _words(6, 2, seed=4)
     packed = tdig.digest_packed(tbp.words_from_numpy(w), 64)
