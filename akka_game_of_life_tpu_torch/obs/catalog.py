@@ -368,7 +368,10 @@ CATALOG = (
      "Digest comparisons that disagreed (corrupt recovery source / "
      "diverged state — always a fault, never expected)", ()),
     ("gol_digest_seconds", "histogram",
-     "Wall seconds per digest compute+fetch (device) or merge (frontend)",
+     "Wall seconds per digest computation called on the device (the "
+     "standalone run's obs.digest span and fast-forward certification; the "
+     "device's own seconds are family digest of "
+     "gol_program_device_seconds_total) or per merge of tile lanes (frontend)",
      ()),
     # -- checkpoint / durability ---------------------------------------------
     ("gol_checkpoint_saves_total", "counter",
@@ -379,7 +382,10 @@ CATALOG = (
      "Checkpoint IO wall seconds", ("op",)),
     # -- profiling spans -----------------------------------------------------
     ("gol_span_seconds", "histogram",
-     "profiling.timed() span wall seconds", ("span",)),
+     "Wall seconds per span: profiling.timed() blocks, and the tracer "
+     "spans given this histogram (sim.observe and its obs.sync/dispatch/"
+     "fetch/emit parts, the serve tick's serve.pad/dispatch/fetch/scatter); "
+     "sim.chunk is gol_step_seconds and obs.digest gol_digest_seconds", ("span",)),
     # -- compile & device-cost observatory (obs/programs.py) ------------------
     ("gol_compile_seconds", "histogram",
      "First-call (compile) wall seconds per registered jitted program, "

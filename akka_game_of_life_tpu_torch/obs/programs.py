@@ -309,6 +309,7 @@ class ProgramRegistry:
         fn: Callable,
         *,
         cost=None,
+        compiles: bool = True,
     ) -> Callable:
         """Register ``fn`` (a jitted callable a factory is about to cache)
         under ``(family, key)`` and return the instrumented callable.
@@ -320,6 +321,10 @@ class ProgramRegistry:
         recorded as the compile bill; every call adds its seconds (CUDA
         events on the card, resolved later; host wall time otherwise, see
         the module docstring) and priced work to the family totals.
+        ``compiles=False`` marks a program of eager launches with nothing
+        to build (the digest): its first call is counted as a call only,
+        with no compile bill (``compile_seconds`` 0), no
+        ``gol_compile_seconds`` observation and no compile-storm alert.
         """
         if not self.enabled:
             return fn
@@ -358,12 +363,12 @@ class ProgramRegistry:
                 else:
                     rec.pending.append(timed)
                 if first:
-                    rec.compile_s = dt
+                    rec.compile_s = dt if compiles else 0.0
                 if c:
                     rec.cells += float(c.get("cells", 0.0))
                     rec.bytes += float(c.get("bytes", 0.0))
                     rec.flops += float(c.get("flops", 0.0))
-                if first and rec.post_warm and not rec.storm_fired:
+                if first and compiles and rec.post_warm and not rec.storm_fired:
                     rec.storm_fired = True
                     self._storms += 1
                     storm = True
@@ -374,7 +379,7 @@ class ProgramRegistry:
             ).labels(family=family).inc()
             if timed is None:
                 _c_device_seconds(mreg).labels(family=family).inc(dt)
-            if first:
+            if first and compiles:
                 _h_compile(mreg).labels(family=family).observe(dt)
             if storm:
                 self._emit_storm(rec)
@@ -753,11 +758,13 @@ def get_programs() -> ProgramRegistry:
     return _GLOBAL
 
 
-def registered_jit(family: str, key, fn: Callable, *, cost=None) -> Callable:
+def registered_jit(
+    family: str, key, fn: Callable, *, cost=None, compiles: bool = True
+) -> Callable:
     """Module-level sugar for ``get_programs().wrap(...)`` — the one-line
     integration every cached jit-factory site uses (GL-HAZ05 enforces
     that they do)."""
-    return _GLOBAL.wrap(family, key, fn, cost=cost)
+    return _GLOBAL.wrap(family, key, fn, cost=cost, compiles=compiles)
 
 
 def register_section(name: str, provider: Callable[[], dict]) -> None:

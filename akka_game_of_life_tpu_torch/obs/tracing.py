@@ -23,6 +23,18 @@ Nesting is implicit within a thread (a module-level stack, so
 without knowing about the tracer) and explicit across threads/processes
 (pass ``parent=`` a span, its ``ctx``, or a wire dict).
 
+While a ``torch.profiler`` runs in the process, a span used as a context
+manager also enters ``torch.profiler.record_function(<name>)`` and leaves
+it on exit, so the span lands on the profiler's own timeline (a
+``user_annotation`` event, the profiler's clock) beside the kernels it
+launched.  With no profiler running that costs one flag read.  Spans
+started and finished apart (:meth:`Tracer.start` / :meth:`Span.finish`,
+possibly on two threads) and the back-dated children of
+:func:`record_timed` are not annotated.  A span given ``histogram=`` (a
+histogram, or one labelled child of a family such as
+``gol_span_seconds{span=<name>}``) also observes its duration there once,
+when it finishes.
+
 Every span name the runtime emits is declared in :data:`SPAN_CATALOG`;
 ``tools/check_trace_names.py`` (tier-1) lints that each appears in
 ``docs/OPERATIONS.md`` so the operator-facing table cannot rot.
@@ -32,6 +44,7 @@ from __future__ import annotations
 
 import json
 import random
+import sys
 import threading
 import time
 from collections import deque
@@ -51,6 +64,19 @@ SPAN_CATALOG = (
     # -- standalone runtime ---------------------------------------------------
     ("sim.advance", "one Simulation.advance() call (the standalone run loop)"),
     ("sim.chunk", "one stepper chunk (steps_per_call epochs, one device round-trip)"),
+    ("sim.observe", "one cadence observation: the wait for the chunk, the "
+     "device reads, their fetch and the observer's lines (under obs_defer "
+     "the dispatch and the later emit each open one)"),
+    ("obs.sync", "the observation's wait for the chunk's kernels (child of "
+     "sim.observe)"),
+    ("obs.dispatch", "the observation's device reads launched and their "
+     "copies to the host started, with any wait for the card's queue in "
+     "that: a pageable index upload or a digest block check queued behind "
+     "the chunk's and the population's kernels (child of sim.observe)"),
+    ("obs.fetch", "the wait for the observation's copies still in flight "
+     "once dispatched, and the gather across ranks (child of sim.observe)"),
+    ("obs.emit", "the observation's host work: joins, the digest's fold and "
+     "the observer's lines (child of sim.observe)"),
     ("sim.fastforward", "one O(log T) linear-rule jump (certify + jump + "
      "board swap)"),
     ("chaos.crash", "injected crash taking effect (state discarded)"),
@@ -81,6 +107,16 @@ SPAN_CATALOG = (
     # -- multi-tenant serving plane -------------------------------------------
     ("serve.tick", "one serving-plane engine tick (batched device programs "
      "over this tick's step jobs)"),
+    ("serve.pad", "one size class's batch padded into host arrays: boards "
+     "and rule operands (child of serve.tick)"),
+    ("serve.dispatch", "one size class's batched step called: the host's "
+     "launches, and its waits for room in the card's launch queue once "
+     "that is full (child of serve.tick)"),
+    ("serve.fetch", "one size class's boards and digest lanes copied back: "
+     "the wait for the work still queued after the last launch (child of "
+     "serve.tick)"),
+    ("serve.scatter", "one size class's results written back: slices, "
+     "popcounts, table writes, completions (child of serve.tick)"),
     ("serve.memo", "one tick's memoized macro-step phase: lockstep "
      "macro-rounds over the tick's eligible jobs, one batched device "
      "call of deduplicated cache misses per round (child of serve.tick)"),
@@ -106,8 +142,9 @@ SPAN_CATALOG = (
     ("checkpoint.save", "one checkpoint save made durable"),
     ("checkpoint.restore", "one checkpoint load"),
     # -- digest certification plane -------------------------------------------
-    ("obs.digest", "one board digest: computed+fetched on device "
-     "(standalone) or merged from per-tile lanes (frontend)"),
+    ("obs.digest", "one board digest: its computation called on the device "
+     "(standalone, inside obs.dispatch; the fold to a value is in "
+     "obs.emit) or merged from per-tile lanes (frontend)"),
 )
 
 _SPAN_NAMES = frozenset(n for n, _ in SPAN_CATALOG)
@@ -121,12 +158,13 @@ class Span:
     __slots__ = (
         "name", "trace_id", "span_id", "parent_id", "node",
         "t0_wall", "t0_mono", "duration", "attrs", "tid", "_tracer", "_done",
+        "_histogram", "_annotation",
     )
 
     def __init__(
         self, tracer: "Tracer", name: str, trace_id: str, span_id: str,
         parent_id: Optional[str], node: str, t0_wall: float, t0_mono: float,
-        tid: int, attrs: Dict[str, object],
+        tid: int, attrs: Dict[str, object], histogram=None,
     ) -> None:
         self._tracer = tracer
         self.name = name
@@ -140,6 +178,8 @@ class Span:
         self.attrs = attrs
         self.duration: Optional[float] = None
         self._done = False
+        self._histogram = histogram
+        self._annotation = None
 
     @property
     def ctx(self) -> Dict[str, str]:
@@ -158,6 +198,8 @@ class Span:
             return
         self._done = True
         self.duration = self._tracer._clock() - self.t0_mono
+        if self._histogram is not None:
+            self._histogram.observe(self.duration)
         self._tracer._record_finished(self)
 
     def to_dict(self) -> dict:
@@ -178,14 +220,33 @@ class Span:
     # spans (and profiling.timed blocks) parent themselves automatically.
     def __enter__(self) -> "Span":
         _stack().append(self)
+        if profiler_running():
+            import torch
+
+            self._annotation = torch.profiler.record_function(self.name)
+            self._annotation.__enter__()
         return self
 
     def __exit__(self, *exc) -> bool:
         stack = _stack()
         if stack and stack[-1] is self:
             stack.pop()
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
+            self._annotation = None
         self.finish()
         return False
+
+
+def profiler_running() -> bool:
+    """Whether a ``torch.profiler`` runs anywhere in this process.
+
+    torch's process-wide flag, set while any profiler runs: the calling
+    thread's own profiler state (``torch._C._autograd._profiler_enabled``)
+    reads False on a thread the profiler only reaches through
+    ``profile_all_threads``, and even on the thread that started it."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    return profiler is not None and getattr(profiler, "_is_profiler_enabled", False)
 
 
 # Module-level (not per-tracer) active-span stack: profiling.timed() and any
@@ -291,28 +352,31 @@ class Tracer:
 
     def start(
         self, name: str, *, parent: _Parent = None, node: Optional[str] = None,
-        **attrs,
+        histogram=None, **attrs,
     ) -> Span:
         """Create a live span.  ``parent`` is a Span, a wire ctx dict, or
         None — None adopts this thread's active span, or roots a new trace.
-        The caller owns calling :meth:`Span.finish` (or use the span as a
-        context manager for stack-nesting semantics)."""
+        ``histogram`` (anything with ``observe(seconds)``: a histogram or
+        one labelled child) gets the span's duration on finish.  The caller owns calling
+        :meth:`Span.finish` (or use the span as a context manager for
+        stack-nesting semantics and the profiler annotation)."""
         if parent is None:
             parent = current()
         trace_id, parent_id = self._ids(parent)
         return Span(
             self, name, trace_id, self._span_id(), parent_id,
             node or self.node, self._wall(), self._clock(), self._ident(),
-            dict(attrs),
+            dict(attrs), histogram,
         )
 
     def span(
         self, name: str, *, parent: _Parent = None, node: Optional[str] = None,
-        **attrs,
+        histogram=None, **attrs,
     ) -> Span:
         """:meth:`start`, intended for ``with`` use (enter pushes the span
-        onto the thread stack; exit pops and finishes it)."""
-        return self.start(name, parent=parent, node=node, **attrs)
+        onto the thread stack and annotates the profiler's timeline; exit
+        pops and finishes it)."""
+        return self.start(name, parent=parent, node=node, histogram=histogram, **attrs)
 
     def _record_finished(self, span: Span) -> None:
         d = span.to_dict()

@@ -30,6 +30,8 @@ from typing import Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from akka_game_of_life_tpu_torch.obs.programs import registered_jit
+
 LANE_SEEDS = (0x9E3779B9, 0x7F4A7C15)
 _M1 = 0x85EBCA6B
 _M2 = 0xC2B2AE35
@@ -102,7 +104,23 @@ def digest_packed(
 ) -> torch.Tensor:
     """Digest lanes of a bit-packed (h, words) int32 board (LSB-first, bit
     j of word c = cell x = 32c+j); equal to :func:`digest_dense` of the
-    unpacked board.  Returns a (2,) int64 tensor ``[lo, hi]``."""
+    unpacked board.  Returns a (2,) int64 tensor ``[lo, hi]``.
+
+    Each call is a program of the ledger (family ``digest``, keyed by the
+    words' shape and the board's width), so its device seconds are counted
+    like a stepper's; priced as one read of the packed words.  Its eager
+    passes build nothing, so its first call bills no compile."""
+    h, nwords = words.shape
+    return registered_jit(
+        "digest", ("packed", h, nwords, width), _digest_packed,
+        cost={"bytes": float(words.numel() * words.element_size())},
+        compiles=False,
+    )(words, width, row0, wordcol0)
+
+
+def _digest_packed(
+    words: torch.Tensor, width: int, row0: int, wordcol0: int
+) -> torch.Tensor:
     h, nwords = words.shape
     dev = words.device
     lanes = torch.zeros(2, dtype=torch.int64, device=dev)

@@ -4,8 +4,9 @@ Counterpart of ``akka_game_of_life_tpu/runtime/profiling.py``, with the XLA
 profiler replaced by PyTorch's: :func:`trace` captures a host and device
 timeline (CPU activities, and CUDA kernels and copies where a card is
 present) and writes it as a Chrome trace-event / Perfetto JSON file into the
-directory; :func:`annotate_epochs` marks each host-loop chunk on that
-timeline through ``record_function``.
+directory.  The port's tracer spans (``sim.chunk``, ``sim.observe`` and its
+parts, the serve tick's parts; ``obs/tracing.py``) land on that timeline
+as ``record_function`` annotations while it runs.
 
 Usage:
 
@@ -69,12 +70,6 @@ def trace(trace_dir: Optional[str]) -> Iterator[Optional[torch.profiler.profile]
         yield prof
     finally:
         stop_trace(prof)
-
-
-def annotate_epochs(name: str, epoch: int):
-    """Mark one host-loop chunk on the profiler timeline (``name@epoch``);
-    costs a few microseconds when no profiler runs."""
-    return torch.profiler.record_function(f"{name}@{epoch}")
 
 
 class TimedSpan:

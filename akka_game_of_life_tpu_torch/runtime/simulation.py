@@ -113,7 +113,9 @@ blocks raises when the run is built.
 
 **The run's machinery** is the JAX package's: the metrics registry, the span
 tracer and its flight recorder, the JSONL event log and the metrics-file
-dump (``registry=`` / ``tracer=`` for embedders); ``tick_s`` pacing; fault
+dump (``registry=`` / ``tracer=`` for embedders), its spans on a running
+``torch.profiler``'s timeline, each part of a cadence observation also in
+``gol_span_seconds``; ``tick_s`` pacing; fault
 injection with deterministic replay from the newest checkpoint
 (``crash_log``); deferred observation (``obs_defer``: each cadence record's
 device results are copied into pinned host buffers without blocking and read
@@ -472,6 +474,7 @@ class Simulation:
         self._m_obs_seconds = self.metrics.histogram("gol_obs_seconds")
         self._m_digest_checks = self.metrics.counter("gol_digest_checks_total")
         self._m_digest_seconds = self.metrics.histogram("gol_digest_seconds")
+        self._m_spans = self.metrics.histogram("gol_span_seconds", labelnames=("span",))
         self._node = f"{config.role}:{self.rank}"
         if tracer is None:
             # Nodeless spans (checkpoint IO on the writer thread) carry
@@ -920,12 +923,10 @@ class Simulation:
                         # shield the whole chunk, or an interrupt mid-scatter
                         # would checkpoint a half-stepped board.
                         with _shield_sigint():
-                            with profiling.annotate_epochs("advance_chunk", self.epoch):
-                                self.board = self._stepper(chunk)(self.board)
+                            self.board = self._stepper(chunk)(self.board)
                             self.epoch += chunk
                     else:
-                        with profiling.annotate_epochs("advance_chunk", self.epoch):
-                            new_board = self._stepper(chunk)(self.board)
+                        new_board = self._stepper(chunk)(self.board)
                         with _shield_sigint():
                             # Atomic with respect to ^C: an interrupt
                             # checkpoint never sees a stepped board labelled
@@ -1042,6 +1043,13 @@ class Simulation:
         if self.layout == "words":
             return bitpack.pack(dense)
         return dense
+
+    def _span(self, name: str, **attrs):
+        """A tracer span of this run whose wall seconds also land in
+        ``gol_span_seconds{span=name}``."""
+        return self.tracer.span(
+            name, node=self._node, histogram=self._m_spans.labels(span=name), **attrs
+        )
 
     def _sync(self) -> None:
         devices = self.mesh.distinct_devices() if self.mesh is not None else [self.device]
@@ -1199,16 +1207,24 @@ class Simulation:
         mode the clock starts after the stepper's work has finished, so
         ``obs`` on the metrics line is the observation's own cost; under
         ``obs_defer`` the record is only dispatched here."""
-        if self.config.obs_defer:
-            self._pending_obs.append(self._obs_dispatch(render))
-            return
-        self._sync()
-        t0 = time.perf_counter()
-        self._obs_emit(self._obs_dispatch(render), t0)
+        with self._span("sim.observe", epoch=self.epoch):
+            if self.config.obs_defer:
+                with self._span("obs.dispatch"):
+                    self._pending_obs.append(self._obs_dispatch(render))
+                return
+            with self._span("obs.sync"):
+                self._sync()
+            t0 = time.perf_counter()
+            with self._span("obs.dispatch"):
+                rec = self._obs_dispatch(render)
+            self._obs_emit(rec, t0)
 
     def _obs_dispatch(self, render: bool) -> dict:
         """Dispatch the cadence observation on the device and start its
-        copies to the host; nothing here waits for them."""
+        copies to the host; nothing here reads them.  The digest's row-block
+        checks and the pageable uploads of the view's and the probe's
+        indices still wait for the card's queue (``obs.dispatch`` holds
+        that wait)."""
         cfg = self.config
         strides = sample_strides(cfg.shape, cfg.render_max_cells)
         h, w = cfg.shape
@@ -1222,8 +1238,14 @@ class Simulation:
                 if render else None
             ),
             "win": None,
-            "digest": self._digest_parts(tiles) if cfg.obs_digest else None,
+            "digest": None,
         }
+        if cfg.obs_digest:
+            with self.tracer.span(
+                "obs.digest", node=self._node, epoch=self.epoch,
+                histogram=self._m_digest_seconds,
+            ):
+                tree["digest"] = self._digest_parts(tiles)
         if self._probe_due(render):
             y0, y1, x0, x1 = cfg.probe_window
             tree["win"] = self._cells_request(np.arange(y0, y1), np.arange(x0, x1), tiles)
@@ -1236,45 +1258,45 @@ class Simulation:
         before any line is written, so a failed write consumes the record
         rather than repeating it."""
         cfg = self.config
-        dig_t0 = time.perf_counter()
-        got = self._all_ranks(rec["fetch"].result())
+        with self._span("obs.fetch"):
+            got = self._all_ranks(rec["fetch"].result())
         if on_fetched is not None:
             on_fetched()
-        digest = None
-        if got["digest"] is not None:
-            with self.tracer.span("obs.digest", node=self._node, epoch=rec["epoch"]) as sp:
+        with self._span("obs.emit") as span:
+            digest = None
+            if got["digest"] is not None:
                 digest = odigest.value(odigest.merge_lanes(got["digest"]))
-                sp.set(digest=odigest.format_digest(digest))
-            self._m_digest_seconds.observe(time.perf_counter() - dig_t0)
-            self._m_digest_checks.inc()
-        population = int(sum(int(p) for p in got["pops"]))
-        view = self._join(got["view"]) if got["view"] is not None else None
-        win = self._join(got["win"]) if got["win"] is not None else None
-        obs_seconds = time.perf_counter() - t0
-        self._m_obs_seconds.observe(obs_seconds)
-        if self.rank != 0:
-            return
-        self.observer.observe_summary(
-            rec["epoch"],
-            population,
-            cfg.shape,
-            view,
-            rec["strides"],
-            obs_seconds=obs_seconds,
-            digest=digest,
-        )
-        if win is not None:
-            self.observer.observe_window(rec["epoch"], win, cfg.probe_window)
+                span.set(digest=odigest.format_digest(digest))
+                self._m_digest_checks.inc()
+            population = int(sum(int(p) for p in got["pops"]))
+            view = self._join(got["view"]) if got["view"] is not None else None
+            win = self._join(got["win"]) if got["win"] is not None else None
+            obs_seconds = time.perf_counter() - t0
+            self._m_obs_seconds.observe(obs_seconds)
+            if self.rank != 0:
+                return
+            self.observer.observe_summary(
+                rec["epoch"],
+                population,
+                cfg.shape,
+                view,
+                rec["strides"],
+                obs_seconds=obs_seconds,
+                digest=digest,
+            )
+            if win is not None:
+                self.observer.observe_window(rec["epoch"], win, cfg.probe_window)
 
     def _obs_resolve(self) -> None:
         """Emit every pending deferred record, oldest first (a no-op in sync
-        mode)."""
+        mode), each in a ``sim.observe`` of its own."""
         while self._pending_obs:
-            self._obs_emit(
-                self._pending_obs[0],
-                time.perf_counter(),
-                on_fetched=lambda: self._pending_obs.pop(0),
-            )
+            with self._span("sim.observe", epoch=self._pending_obs[0]["epoch"]):
+                self._obs_emit(
+                    self._pending_obs[0],
+                    time.perf_counter(),
+                    on_fetched=lambda: self._pending_obs.pop(0),
+                )
 
     def board_digest(self) -> int:
         """The 64-bit digest of the current board (~8 fetched bytes per

@@ -6,7 +6,9 @@ job queue, and a ticker thread that drains the queue in **ticks** — each
 tick groups pending step jobs by size class, pads them into one
 ``[B, C, C]`` stack, and advances the whole group in ONE device program
 (:mod:`akka_game_of_life_tpu_torch.serve.batch`), scattering boards, epochs, and
-per-board digest lanes back into the table.
+per-board digest lanes back into the table.  Each class's batch runs in
+four spans under ``serve.tick`` (``serve.pad``, ``serve.dispatch``,
+``serve.fetch``, ``serve.scatter``), also timed in ``gol_span_seconds``.
 
 Admission control is enforced at the table edge, never inside the engine,
 and always answers instead of wedging:
@@ -306,6 +308,7 @@ class SessionRouter:
             "gol_serve_batch_boards", buckets=RING_BATCH_BUCKETS
         )
         self._m_tick = self.metrics.histogram("gol_serve_tick_seconds")
+        self._m_spans = self.metrics.histogram("gol_span_seconds", labelnames=("span",))
         self._m_req = self.metrics.histogram("gol_serve_step_seconds")
 
         # Cross-tenant memoized macro-stepping (serve/memo.py): one engine
@@ -1093,24 +1096,38 @@ class SessionRouter:
             max(nsteps for _, _, _, _, nsteps in entries)
         )
         b_pad = sbatch.next_pow2(b_real)
-        boards = np.zeros((b_pad, cls, cls), dtype=np.uint8)
-        birth = np.zeros(b_pad, dtype=np.uint32)
-        survive = np.zeros(b_pad, dtype=np.uint32)
-        states = np.full(b_pad, 2, dtype=np.int32)
-        hs = np.ones(b_pad, dtype=np.int32)
-        ws = np.ones(b_pad, dtype=np.int32)
-        ns = np.zeros(b_pad, dtype=np.int32)
-        for i, (job, sess, board, _, nsteps) in enumerate(entries):
-            boards[i, : sess.height, : sess.width] = board
-            birth[i], survive[i], states[i] = sbatch.rule_operands(sess.rule)
-            hs[i], ws[i] = sess.height, sess.width
-            ns[i] = nsteps
-        out, lanes = sbatch.batch_step_fn(cls, length, self.device)(
-            boards, birth, survive, states, hs, ws, ns
-        )
-        out = out.cpu().numpy()
-        lanes = lanes.cpu().numpy().astype(np.uint32)
-        self._m_batch.observe(b_real)
+        with self._span("serve.pad"):
+            boards = np.zeros((b_pad, cls, cls), dtype=np.uint8)
+            birth = np.zeros(b_pad, dtype=np.uint32)
+            survive = np.zeros(b_pad, dtype=np.uint32)
+            states = np.full(b_pad, 2, dtype=np.int32)
+            hs = np.ones(b_pad, dtype=np.int32)
+            ws = np.ones(b_pad, dtype=np.int32)
+            ns = np.zeros(b_pad, dtype=np.int32)
+            for i, (job, sess, board, _, nsteps) in enumerate(entries):
+                boards[i, : sess.height, : sess.width] = board
+                birth[i], survive[i], states[i] = sbatch.rule_operands(sess.rule)
+                hs[i], ws[i] = sess.height, sess.width
+                ns[i] = nsteps
+        with self._span("serve.dispatch"):
+            out, lanes = sbatch.batch_step_fn(cls, length, self.device)(
+                boards, birth, survive, states, hs, ws, ns
+            )
+        with self._span("serve.fetch"):
+            out = out.cpu().numpy()
+            lanes = lanes.cpu().numpy().astype(np.uint32)
+        with self._span("serve.scatter"):
+            self._scatter(entries, out, lanes)
+
+    def _scatter(
+        self,
+        entries: List[Tuple[_Job, Session, np.ndarray, int, int]],
+        out: np.ndarray,
+        lanes: np.ndarray,
+    ) -> None:
+        """Write a class batch's results back into the table and complete
+        its jobs."""
+        self._m_batch.observe(len(entries))
         # Slice-copies and popcounts are O(Σ h·w) host work — done OUTSIDE
         # the lock so scatter-back never stalls concurrent create/step/get.
         results = [
@@ -1153,6 +1170,11 @@ class SessionRouter:
         # (the cluster plane's wire replies) must never run under the lock.
         for job, _, _, _, _ in entries:
             self._finish(job)
+
+    def _span(self, name: str):
+        """A tracer span of the ticker whose wall seconds also land in
+        ``gol_span_seconds{span=name}``."""
+        return self.tracer.span(name, histogram=self._m_spans.labels(span=name))
 
     def drain(self, timeout: float = 30.0) -> bool:
         """Refuse NEW work and run the already-admitted queue dry (bounded)

@@ -10,14 +10,16 @@ Three parts:
   the JAX package's TPU anchor (``vs_r3b_headline``,
   ``headline_cells_per_s``) is left out, since the port carries none;
 - **the sites**: the set of family names passed to ``registered_jit(`` in
-  the port equals the JAX package's, read from the sources;
+  the port equals the JAX package's, read from the sources, with the
+  port's own ``digest`` (its board digest is a program of the ledger; the
+  JAX package's is not registered);
 - **the same ledger**: each registered program factory on ``run``'s paths
   runs in both packages at 64² or less, through ``Simulation`` or the CLI
   (the sweeps with JAX in interpret mode) or, for the factories no ``run``
   reaches in either package, called directly; both ledgers must hold the
   same ``(family, key)`` set and, per family, the same ``calls``, ``cells``,
-  ``bytes`` and ``flops``.  On the CPU the port's seconds are host wall
-  time.
+  ``bytes`` and ``flops``, the port's own families aside (checked on their
+  own).  On the CPU the port's seconds are host wall time.
 
 Plus the port's own timing rule, with stand-in events: a call on the card
 leaves its event pair pending, the record's next call resolves it without
@@ -321,10 +323,16 @@ def _families(package: str) -> set:
     return found
 
 
+# Families only the port registers: ``digest``, each ``ops/digest.py``
+# ``digest_packed`` call, so the digest's device time is on the ledger.
+PORT_ONLY_FAMILIES = frozenset({"digest"})
+
+
 def test_port_registers_the_jax_packages_families():
     want = _families("akka_game_of_life_tpu")
     assert "pallas" in want and "sparse" in want
-    assert _families("akka_game_of_life_tpu_torch") == want
+    assert not want & PORT_ONLY_FAMILIES
+    assert _families("akka_game_of_life_tpu_torch") == want | PORT_ONLY_FAMILIES
 
 
 # -- the same ledger --------------------------------------------------------------
@@ -366,11 +374,13 @@ def _ledger(package: str, programs):
         clear()
 
 
-def _view(programs) -> tuple:
-    keys = sorted((p["family"], p["key"]) for p in programs.snapshot()["programs"])
+def _view(programs, drop=frozenset()) -> tuple:
+    keys = sorted((p["family"], p["key"]) for p in programs.snapshot()["programs"]
+                  if p["family"] not in drop)
     fams = {
         family: {k: agg[k] for k in ("programs", "calls", "cells", "bytes", "flops")}
         for family, agg in programs.family_summary().items()
+        if family not in drop
     }
     return keys, fams
 
@@ -392,7 +402,7 @@ def _both(jax_fn, port_fn) -> tuple:
         want = _view(programs)
     with _ledger("akka_game_of_life_tpu_torch", t_programs.get_programs()) as programs:
         port_fn()
-        got = _view(programs)
+        got = _view(programs, PORT_ONLY_FAMILIES)
     return want, got
 
 
@@ -428,6 +438,48 @@ def test_simulation_ledgers_match_jax(case, one_jax_device):
     assert got == want
     family = case.split("-")[0]
     assert want[1][family]["calls"] == epochs // kw["steps_per_call"]
+
+
+@pytest.mark.parametrize("layout", ["words", "planes"])
+def test_simulation_digest_is_a_program_of_the_port(layout):
+    """Each cadence digest of a packed board is one ``digest`` call a
+    plane, keyed by the words' shape and the width, priced as one read of
+    the words."""
+    kw = {**SIM, "metrics_every": 8, "obs_digest": True}
+    if layout == "planes":
+        kw.update(rule="wireworld", pattern="wireworld-clock")
+    with _ledger("akka_game_of_life_tpu_torch", t_programs.get_programs()) as programs:
+        Simulation(SimulationConfig(**kw), observer=BoardObserver(out=io.StringIO()),
+                   device="cpu").advance(24)
+        keys, fams = _view(programs)
+    planes = 2 if layout == "planes" else 1
+    assert ("digest", repr(("packed", 64, 2, 64))) in keys
+    assert fams["digest"]["programs"] == 1
+    assert fams["digest"]["calls"] == 3 * planes
+    assert fams["digest"]["bytes"] == 3 * planes * 64 * 2 * 4
+    assert fams["digest"]["cells"] == 0
+
+
+def test_the_digest_bills_no_compile_and_raises_no_storm():
+    """The digest's eager passes build nothing: its first call is a call,
+    not a compile, even for a new shape on a ledger marked warm."""
+    from akka_game_of_life_tpu_torch.ops.digest import digest_packed
+
+    metrics = t_catalog.install(t_metrics.MetricsRegistry())
+    with _ledger("akka_game_of_life_tpu_torch", t_programs.get_programs()) as programs:
+        programs.configure(metrics=metrics)
+        words = torch.randint(-2**31, 2**31 - 1, (16, 2), dtype=torch.int32)
+        digest_packed(words, 64)
+        programs.mark_warm()
+        digest_packed(words[:8], 64)
+        digest_packed(words[:8], 64)
+        recs = {p["key"]: p for p in programs.snapshot()["programs"]}
+        rec16, rec8 = recs[repr(("packed", 16, 2, 64))], recs[repr(("packed", 8, 2, 64))]
+        assert (rec16["calls"], rec8["calls"]) == (1, 2)
+        assert rec16["compile_seconds"] == rec8["compile_seconds"] == 0.0
+        assert programs.storms == 0
+        assert programs.family_summary()["digest"]["compile_seconds"] == 0.0
+    assert "gol_compile_seconds" not in metrics.snapshot()
 
 
 # Rows 8-10 through the CLI on the runs of test_torch_steppers_run.  `auto`
