@@ -100,6 +100,18 @@ def ltl_bound(h: int, w: int, rule, int32_ops_per_s: float) -> Dict:
     return _bound(bytes_ms, ops_ms)
 
 
+def digest_bound(h: int, nw: int, int32_ops_per_s: float) -> Dict:
+    """The least time one digest of an (h, nw) packed board could take:
+    one read of the words over HBM, or the kernel's integer-pipe
+    instructions per cell (``digest.ALU_OPS_PER_CELL``) over the integer
+    rate, whichever is larger."""
+    from akka_game_of_life_tpu_torch.ops.digest import ALU_OPS_PER_CELL
+
+    bytes_ms = h * nw * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = ALU_OPS_PER_CELL * h * nw * 32 / int32_ops_per_s * 1e3
+    return _bound(bytes_ms, ops_ms)
+
+
 def matmul_bound(plan) -> Dict:
     """The least time one banded-matmul generation (``MatmulPlan``) could
     take: the board read and written once (uint8) over HBM, or the two

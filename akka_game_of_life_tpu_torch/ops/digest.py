@@ -8,13 +8,18 @@ board and a digest certifies the port against the JAX package:
     D_lane        = Σ_cells state(r, c) · key_lane(r, c)     (mod 2³²)
     digest        = (D_hi << 32) | D_lo
 
-PyTorch does not promise uint32 wrap-around, so the torch versions compute
-in int64 and mask with ``& 0xFFFFFFFF``: each 32x32-bit product is split in
-16-bit halves so no intermediate reaches 2⁶³, and sums run over row blocks
-small enough that a block sum of values below 2³² stays below 2⁶³.  Row
-blocks also bound scratch: a 65536² board never holds more than one block's
-int64 temporaries.  Row blocks with no set bit are skipped (they contribute
-nothing), which makes digests of sparse boards cheap.
+On a CUDA tensor :func:`digest_packed` launches the hand-written kernel
+``csrc/digest.cu``: one pass over the words in native uint32 arithmetic,
+with no host sync.  Everything else here is plain PyTorch, and
+:func:`_digest_packed` is the packed digest's plain version, which CPU
+tensors take.  PyTorch does not promise uint32 wrap-around, so the torch
+versions compute in int64 and mask with ``& 0xFFFFFFFF``: each 32x32-bit
+product is split in 16-bit halves so no intermediate reaches 2⁶³, and sums
+run over row blocks small enough that a block sum of values below 2³²
+stays below 2⁶³.  Row blocks also bound scratch: a 65536² board never holds
+more than one block's int64 temporaries.  Row blocks with no set bit are
+skipped (they contribute nothing), which makes digests of sparse boards
+cheap.
 
 The numpy twins (``*_np``), ``merge_lanes``, ``value``, ``format_digest``
 and ``BlockLaneCache`` are copies of the JAX package's;
@@ -25,12 +30,16 @@ cell-free key table and one product.
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Tuple
+import ctypes
+import functools
+import threading
+from typing import Callable, Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from akka_game_of_life_tpu_torch.obs.programs import registered_jit
+from akka_game_of_life_tpu_torch.ops.packed_sweep import launch_on_stream
 
 LANE_SEEDS = (0x9E3779B9, 0x7F4A7C15)
 _M1 = 0x85EBCA6B
@@ -38,6 +47,17 @@ _M2 = 0xC2B2AE35
 _MASK32 = 0xFFFFFFFF
 # Elements per row block of int64 scratch (64 MiB each).
 _BLOCK_ELEMS = 1 << 23
+# Integer-pipe instructions (LOP3 and shifts) a cell of ``csrc/digest.cu``
+# needs: per lane, fmix32 after its hoisted first xor-shift takes the xor
+# with the bit's index, two shifts and two xors.  Its four multiplies and two
+# predicated adds a cell run on the multiply-add pipe, beside them.  So the
+# bound it gives is this kernel's integer-pipe floor, not one of the digest
+# function; ``chip_smoke.py`` reads the built code and checks that it issues
+# no fewer, and fewer multiply-adds.
+ALU_OPS_PER_CELL = 10
+# The cluster's in-process workers digest from several threads; the launch
+# count must not lose an increment between them.
+_COUNT_LOCK = threading.Lock()
 
 
 def _mulmod32(h: torch.Tensor, m: int) -> torch.Tensor:
@@ -106,21 +126,107 @@ def digest_packed(
     j of word c = cell x = 32c+j); equal to :func:`digest_dense` of the
     unpacked board.  Returns a (2,) int64 tensor ``[lo, hi]``.
 
-    Each call is a program of the ledger (family ``digest``, keyed by the
-    words' shape and the board's width), so its device seconds are counted
-    like a stepper's; priced as one read of the packed words.  Its eager
-    passes build nothing, so its first call bills no compile."""
+    A CUDA tensor takes the kernel ``csrc/digest.cu`` (one launch, no host
+    sync; ``digest_packed.launches`` counts them), a CPU tensor the plain
+    version :func:`_digest_packed`.  Each call is a program of the ledger
+    (family ``digest``, keyed by the words' shape and the board's width),
+    so its device seconds are counted like a stepper's; priced as one read
+    of the packed words.  The kernel's library is loaded before the
+    ledger's entry event, so a first call's build is no call time, and no
+    call bills a compile."""
+    if words.device.type == "cpu":
+        fn = _digest_packed
+    else:
+        _check_words(words)
+        fn = functools.partial(_launch, _resident_blocks(words.device.index))
     h, nwords = words.shape
     return registered_jit(
-        "digest", ("packed", h, nwords, width), _digest_packed,
+        "digest", ("packed", h, nwords, width), fn,
         cost={"bytes": float(words.numel() * words.element_size())},
         compiles=False,
     )(words, width, row0, wordcol0)
 
 
+class _Library(NamedTuple):
+    launch: Callable
+    resident_blocks: Callable
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher() -> _Library:
+    """The C entry points of ``csrc/digest.cu``, built at first use."""
+    from akka_game_of_life_tpu_torch.ops import _build
+
+    lib = _build.load("digest").lib
+    launch = lib.digest_packed_launch
+    launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_uint, ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    launch.restype = ctypes.c_int
+    lib.digest_resident_blocks.argtypes = [ctypes.c_int]
+    lib.digest_resident_blocks.restype = ctypes.c_int
+    return _Library(launch, lib.digest_resident_blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(index: int) -> int:
+    """The kernel's grid on card ``index``: as many blocks as its SMs hold
+    at once, asked once per card (the first call loads the library)."""
+    with torch.cuda.device(index):
+        blocks = _launcher().resident_blocks(index)
+    if blocks < 1:
+        raise RuntimeError(f"digest_resident_blocks failed: CUDA error {-blocks}")
+    return blocks
+
+
+def _check_words(words: torch.Tensor) -> None:
+    """Refuse what the kernel cannot take: anything but a 2-D int32 tensor
+    whose words are adjacent within a row and whose rows do not overlap."""
+    if words.dtype != torch.int32:
+        raise ValueError(f"packed words must be int32, got {words.dtype}")
+    if words.dim() != 2:
+        raise ValueError(
+            f"packed words must be a 2-D (h, words) tensor, got shape {tuple(words.shape)}"
+        )
+    h, nwords = words.shape
+    if nwords > 1 and words.stride(1) != 1:
+        raise ValueError(f"packed words need an inner stride of 1, got {words.stride(1)}")
+    if h > 1 and words.stride(0) < nwords:
+        raise ValueError(
+            f"packed rows must not overlap: row stride {words.stride(0)} < {nwords} words"
+        )
+
+
+def _launch(
+    blocks: int, words: torch.Tensor, width: int, row0: int, wordcol0: int
+) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA ``words`` on the current
+    stream, over at most ``blocks`` blocks; an empty board launches nothing
+    and digests to zero lanes."""
+    h, nwords = words.shape
+    lanes = torch.zeros(2, dtype=torch.int64, device=words.device)
+    if h == 0 or nwords == 0:
+        return lanes
+    rc = launch_on_stream(
+        words.device, _launcher().launch, words.data_ptr(),
+        words.stride(0) if h > 1 else nwords, h, nwords,
+        int(width) & _MASK32, int(row0) & _MASK32, int(wordcol0) & _MASK32,
+        blocks, lanes.data_ptr(),
+    )
+    if rc != 0:
+        raise RuntimeError(f"digest_packed_launch failed: CUDA error {rc}")
+    with _COUNT_LOCK:
+        _counted.launches += 1
+    return lanes
+
+
 def _digest_packed(
     words: torch.Tensor, width: int, row0: int, wordcol0: int
 ) -> torch.Tensor:
+    """The plain version of :func:`digest_packed`: per row block, 32 bits
+    × 2 lanes of int64 passes; a block with no set bit is skipped."""
     h, nwords = words.shape
     dev = words.device
     lanes = torch.zeros(2, dtype=torch.int64, device=dev)
@@ -139,6 +245,12 @@ def _digest_packed(
                 part = (bit * _fmix32(idx ^ seed)).sum() & _MASK32
                 lanes[lane] = (lanes[lane] + part) & _MASK32
     return lanes
+
+
+digest_packed.launches = 0
+# The counter's owner: a caller may wrap the module's ``digest_packed`` (the
+# benchmark's span does), and the launches still count here.
+_counted = digest_packed
 
 
 def digest_planes(

@@ -1221,8 +1221,9 @@ class Simulation:
 
     def _obs_dispatch(self, render: bool) -> dict:
         """Dispatch the cadence observation on the device and start its
-        copies to the host; nothing here reads them.  The digest's row-block
-        checks and the pageable uploads of the view's and the probe's
+        copies to the host; nothing here reads them.  The dense digest's
+        row-block checks (the packed digest is one kernel launch, with
+        none) and the pageable uploads of the view's and the probe's
         indices still wait for the card's queue (``obs.dispatch`` holds
         that wait)."""
         cfg = self.config

@@ -6,9 +6,11 @@
 Run from the root of a checkout.  It builds the CUDA kernels from ``csrc/``
 (one ``nvcc`` per source, all at once), reads the plane sweep's code with
 ``cuobjdump`` (no spill at the main path's depths, no fewer LOP3/SHF per
-word than its bound counts), holds each kernel against its plain PyTorch
-version on the card, bit for bit, and drives the port's four main paths
-through its CLI:
+word than its bound counts; the board digest's likewise per cell), holds
+each kernel against its plain PyTorch version on the card, bit for bit (the
+board digest's at the 65536² soup and at a mesh tile with a non-zero
+origin, timed beside its plain version), and drives the port's four main
+paths through its CLI:
 
 - the headline (``examples/headline-65536.toml``: a 65536² Conway torus
   with a Gosper gun, 240 epochs) through the packed sweep, with digests,
@@ -404,8 +406,8 @@ class Errors:
     uint8 cells."""
 
     def __init__(self):
-        self.max = {name: 0 for name in KERNELS + WIRINGS + ("tune",)}
-        self.checks = {name: 0 for name in KERNELS + WIRINGS + ("tune",)}
+        self.max = {name: 0 for name in KERNELS + WIRINGS + ("tune", "digest")}
+        self.checks = {name: 0 for name in KERNELS + WIRINGS + ("tune", "digest")}
 
     def hold(self, name: str, got, plain, what: str) -> None:
         import torch
@@ -436,7 +438,7 @@ def build_all(card):
     from akka_game_of_life_tpu_torch.ops import _build, gen_sweep, packed_sweep
 
     libs = sorted(
-        {("ltl_sweep", ())}
+        {("ltl_sweep", ()), ("digest", ())}
         | {("gen_sweep", gen_sweep.library_defines(rule)) for rule in GEN_RULES}
         | {("packed_sweep", packed_sweep.library_defines(rule))
            for rule in RULES + ["replicator"]}
@@ -678,10 +680,104 @@ def check_ltl_sweep(errors, rng, card):
     return board
 
 
-def zero_counts():
-    from akka_game_of_life_tpu_torch.ops import gen_sweep, ltl_sweep, packed_sweep
+# A tile of the (2, 2) mesh of the headline board, at a non-zero origin:
+# rows, words, row0, wordcol0.
+DIGEST_TILE = (32768, 1024, 32768, 1024)
+# A SASS instruction: address, predicate guard, opcode, modifiers, operands.
+_SASS_INSN = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_]+)(\S*)([^;]*);")
+_SASS_CONTROL = {"BRA", "BRX", "JMP", "BSSY", "BSYNC", "EXIT", "CALL", "RET"}
 
-    for fn in (packed_sweep.packed_sweep, gen_sweep.gen_sweep, ltl_sweep.ltl_sweep):
+
+def _sass_blocks(text: str, function: str):
+    """The straight-line blocks of ``function`` in ``cuobjdump -sass``
+    text, split at control instructions and at the addresses they name;
+    each a list of (guarded, opcode, modifiers)."""
+    insns, inside = [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = function in line
+            continue
+        m = _SASS_INSN.match(line)
+        if inside and m:
+            insns.append((int(m.group(1), 16), bool(m.group(2)), *m.group(3, 4, 5)))
+    targets = {int(t, 16) for _, _, op, _, rest in insns if op in _SASS_CONTROL
+               for t in re.findall(r"0x([0-9a-f]+)", rest)}
+    blocks, block = [], []
+    for addr, guarded, op, mods, _ in insns:
+        if addr in targets and block:
+            blocks.append(block)
+            block = []
+        block.append((guarded, op, mods))
+        if op in _SASS_CONTROL:
+            blocks.append(block)
+            block = []
+    return blocks + ([block] if block else [])
+
+
+def check_digest_build():
+    """The digest kernel's code, read from its library: in each block that
+    adds a whole word's keys (32 cells, a predicated add per cell and
+    lane: the hoisted path), the LOP3/SHF instructions per cell must be no
+    fewer than the bound's count (``digest.ALU_OPS_PER_CELL``), and the
+    multiply-add pipe's (IMAD, the predicated adds among them) fewer than
+    those, so that the integer pipe is the one that bounds it."""
+    from akka_game_of_life_tpu_torch.ops import _build, digest
+
+    lib = _build.load("digest").lib._name
+    words = []
+    for block in _sass_blocks(_cuobjdump("-sass", lib), "digest_kernel"):
+        adds = sum(1 for guarded, op, mods in block
+                   if guarded and (op == "IADD3" or (op == "IMAD" and mods.startswith(".IADD"))))
+        if adds >= 2 * 32:
+            cells = adds / 2
+            words.append((sum(op in ("LOP3", "SHF") for _, op, _ in block) / cells,
+                          sum(op == "IMAD" for _, op, _ in block) / cells))
+    check(bool(words), "digest_kernel: no block adds a whole word's keys")
+    alu, imad = min(w[0] for w in words), max(w[1] for w in words)
+    check(alu >= digest.ALU_OPS_PER_CELL,
+          f"digest_kernel issues {alu} LOP3/SHF a cell < the bound's {digest.ALU_OPS_PER_CELL}")
+    check(imad < alu, f"digest_kernel: {imad} IMAD a cell >= {alu} LOP3/SHF")
+    return {"word_blocks": len(words), "lop3_shf_per_cell": alu, "imad_per_cell": imad}
+
+
+def digest_phase(errors, card, words):
+    """The digest kernel (``csrc/digest.cu``) against its plain version on
+    the card, at the 65536² soup and at a mesh tile with a non-zero origin,
+    then both timed at the soup, with the kernel's operations bound."""
+    from akka_game_of_life_tpu_torch import bench
+    from akka_game_of_life_tpu_torch.ops import digest
+
+    h, nw = words.shape
+    width = nw * 32
+    rows, cols, row0, wordcol0 = DIGEST_TILE
+    tile = words[row0:row0 + rows, wordcol0:wordcol0 + cols]
+    before = digest.digest_packed.launches
+    errors.hold("digest", digest.digest_packed(words, width),
+                digest._digest_packed(words, width, 0, 0), f"{h}x{nw}")
+    errors.hold("digest", digest.digest_packed(tile, width, row0, wordcol0),
+                digest._digest_packed(tile, width, row0, wordcol0),
+                f"tile {rows}x{cols} at ({row0}, {wordcol0})")
+    check(digest.digest_packed.launches == before + 2, "digest kernel launches")
+    sass = check_digest_build()
+    blocks = digest._resident_blocks(words.device.index)
+    ms = bench.time_ms(lambda: digest._launch(blocks, words, width, 0, 0), reps=20)
+    plain = bench.time_ms(lambda: digest._digest_packed(words, width, 0, 0), reps=3, warmup=1)
+    bound = bench.digest_bound(h, nw, card["int32_ops_per_s"])
+    emit("timing", kernel="digest", shape=[h, nw], tile=list(DIGEST_TILE),
+         replaces=None, checks=errors.checks["digest"], max_abs_err=errors.max["digest"],
+         alu_ops_per_cell=digest.ALU_OPS_PER_CELL, sass=sass, ms=ms,
+         cells_per_s=h * nw * 32 / (ms / 1e3), plain_ms=plain, **bound,
+         share_of_bound=bound["bound_ms"] / ms, library_ms=None,
+         library_note="no single PyTorch call computes this digest",
+         card=card["name_power"])
+    return ms, plain, bound
+
+
+def zero_counts():
+    from akka_game_of_life_tpu_torch.ops import digest, gen_sweep, ltl_sweep, packed_sweep
+
+    for fn in (packed_sweep.packed_sweep, gen_sweep.gen_sweep, ltl_sweep.ltl_sweep,
+               digest.digest_packed):
         fn.launches = 0
 
 
@@ -695,17 +791,41 @@ def read_counts():
     }
 
 
+def digest_launches() -> int:
+    """The digest kernel's launches since ``zero_counts``, apart from the
+    sweeps' counts: an observed run launches it beside them."""
+    from akka_game_of_life_tpu_torch.ops import digest
+
+    return digest.digest_packed.launches
+
+
+def planned_digests(config, start: int, end: int, planes: int) -> int:
+    """Digest kernel launches of a run with ``--obs-digest`` and a
+    checkpoint directory over epochs (start, end]: one per bit plane at
+    every cadence epoch and at every checkpoint."""
+    def every(n: int) -> int:
+        return end // n - start // n
+
+    return planes * (every(config.metrics_every) + every(config.checkpoint_every))
+
+
 def pattern_path(path: Path, kernel: str, tmp: Path, card, *,
                  reference_side: int, conserved: bool):
     """Run a pattern config through the CLI with a checkpoint directory,
     check its launches, digests and windows against the CPU reference, then
-    resume from the middle checkpoint and check the last digest."""
+    resume from the middle checkpoint and check the last digest.  Each
+    run's digests are the digest kernel's launches, one per bit plane of
+    every cadence epoch and checkpoint."""
+    from akka_game_of_life_tpu_torch.ops import bitpack_gen
+    from akka_game_of_life_tpu_torch.ops.rules import resolve_rule
     from akka_game_of_life_tpu_torch.runtime.config import load_config
 
     config = load_config(str(path))
     expected = reference(config, reference_side)
     name = path.stem
     sweeps = planned_sweeps(config, 0, config.max_epochs)
+    planes = 1 if kernel == "packed_sweep" else bitpack_gen.n_planes(resolve_rule(config.rule).states)
+    digests = planned_digests(config, 0, config.max_epochs, planes)
     ckpt = tmp / f"{name}-ckpt"
     zero_counts()
     text, run_s = run_cli(
@@ -716,6 +836,8 @@ def pattern_path(path: Path, kernel: str, tmp: Path, card, *,
     counts = read_counts()
     check(counts[kernel] == sweeps, f"{name}: {counts[kernel]} {kernel} launches, expected {sweeps}")
     check(sum(counts.values()) == counts[kernel], f"{name}: other kernels launched: {counts}")
+    digested = digest_launches()
+    check(digested == digests, f"{name}: {digested} digest launches, expected {digests}")
     metrics, windows = parse_run(text)
     epochs = cadence(config)
     check(sorted(metrics) == epochs, f"{name}: metrics epochs {sorted(metrics)}")
@@ -747,10 +869,13 @@ def pattern_path(path: Path, kernel: str, tmp: Path, card, *,
     check(resumed[last] == metrics[last],
           f"{name}: resume from {mid}: {resumed[last]} != {metrics[last]}")
     check(read_counts()[kernel] == planned_sweeps(config, mid, last), f"{name}: resume launches")
+    check(digest_launches() == planned_digests(config, mid, last, planes),
+          f"{name}: resume digest launches {digest_launches()}")
     cells = config.height * config.width
     emit(
         "main_path", config=str(path.relative_to(ROOT)), kernel=kernel,
         epochs=config.max_epochs, launches=counts, expected_launches=sweeps,
+        digest_launches=digested,
         digests={e: metrics[e][1] for e in epochs},
         populations={e: metrics[e][0] for e in epochs},
         windows_checked=[e for e in epochs if expected[e][2] is not None],
@@ -759,7 +884,8 @@ def pattern_path(path: Path, kernel: str, tmp: Path, card, *,
         observer_cell_updates_per_s=summary["cell_updates_per_sec"],
         card=card["name_power"],
     )
-    return {"launches": counts[kernel], "expected": expected, "run_s": run_s, "ckpt": ckpt,
+    return {"launches": counts[kernel], "digest_launches": digested,
+            "expected": expected, "run_s": run_s, "ckpt": ckpt,
             "metrics": metrics, "windows": windows, "sweeps": sweeps, "text": text}
 
 
@@ -4216,6 +4342,7 @@ def main() -> int:
     words = phase("check_packed_sweep", check_packed_sweep, errors, rng)
     gen_planes = phase("check_gen_sweep", check_gen_sweep, errors, rng, card)
     ltl_board = phase("check_ltl_sweep", check_ltl_sweep, errors, rng, card)
+    digest_times = phase("digest", digest_phase, errors, card, words)
 
     # -- 3. the tile autotuner --------------------------------------------------
     tune = phase("tune", tune_phase, errors, rng, card)
@@ -4328,6 +4455,17 @@ def main() -> int:
         two_process_transport="staged over gloo")
     entries[len(KERNELS) + 2]["launches_two_processes"] = launches["dist_gen_sweep"]
     entries[-1]["best_point"] = tune_best
+    entries.append({
+        "name": "digest", "route": "cuda",
+        "source": "akka_game_of_life_tpu_torch/csrc/digest.cu",
+        "replaces": None,
+        "replaces_note": "no pallas_call: akka_game_of_life_tpu/ops/digest.py:111 is one XLA expression",
+        "launches": headline["digest_launches"],
+        "max_abs_err": errors.max["digest"],
+        "ms": digest_times[0], "plain_ms": digest_times[1],
+        "bound_ms": digest_times[2]["bound_ms"], "bound_by": digest_times[2]["bound_by"],
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": entries}), flush=True)
     print(card["name_power"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ import torch
 from akka_game_of_life_tpu_torch.ops import (
     bitpack,
     bitpack_gen,
+    digest,
     gen_sweep,
     ltl_sweep,
     packed_sweep,
@@ -72,7 +73,7 @@ def libraries():
 
     if not torch.cuda.is_available():
         return
-    libs = {("ltl_sweep", ())}
+    libs = {("ltl_sweep", ()), ("digest", ())}
     libs |= {("gen_sweep", gen_sweep.library_defines(r)) for r in GEN_RULES + PLANE_RULES}
     libs |= {("packed_sweep", packed_sweep.library_defines(r)) for r in BINARY_RULES}
     libs |= {("packed_sweep", packed_sweep.library_defines(r, t))
@@ -118,6 +119,128 @@ def test_launch_rejects_bad_tensors():
         packed_sweep._launch(x[:, ::2], conway, 2)
     with pytest.raises(ValueError, match="contiguous"):
         packed_sweep._launch(x.reshape(-1), conway, 2)
+
+
+# The digest kernel's cases: (name, (h, words), width, row0, wordcol0,
+# fill).  The origin (r + row0)·width passes 2³² in "index-wraps"; a width
+# that is not a multiple of 32 leaves every word's first index unaligned in
+# "ragged-width"; the views are tiles of a larger board (see _digest_case).
+DIGEST_CASES = [
+    ("1x1", (1, 1), 32, 0, 0, "soup"),
+    ("7x3", (7, 3), 96, 0, 0, "soup"),
+    ("9x2-origin", (9, 2), 65536, 5, 3, "soup"),
+    ("ragged-width", (5, 4), 100, 3, 1, "soup"),
+    ("index-wraps", (4, 8), 65536, 65535, 2040, "soup"),
+    ("zeros", (16, 8), 256, 0, 0, "zeros"),
+    ("ones", (16, 8), 256, 0, 0, "ones"),
+    ("row-view", (9, 7), 416, 3, 2, "view"),
+    ("aligned-view", (5, 8), 512, 2, 4, "aligned-view"),
+    ("soup-4096", (4096, 128), 4096, 0, 0, "soup"),
+]
+
+
+def _digest_case(shape, fill, seed):
+    """A case's words on the card: a fresh tensor, or a view of a larger
+    board ("view": every other row, offset by 2 words, so its rows are
+    neither adjacent nor 16-byte aligned; "aligned-view": a 16-byte
+    aligned window whose rows lie 16 words apart)."""
+    h, nw = shape
+    if fill == "zeros":
+        return torch.zeros(shape, dtype=torch.int32, device="cuda")
+    if fill == "ones":
+        return torch.full(shape, -1, dtype=torch.int32, device="cuda")
+    if fill == "view":
+        big = bitpack.words_from_numpy(_words((2 * h + 3, nw + 5), seed), "cuda")
+        return big[3::2, 2:2 + nw]
+    if fill == "aligned-view":
+        big = bitpack.words_from_numpy(_words((h + 4, 16), seed), "cuda")
+        return big[2:2 + h, 4:4 + nw]
+    return bitpack.words_from_numpy(_words(shape, seed), "cuda")
+
+
+def _digest_twin(words: np.ndarray, width, row0, wordcol0) -> np.ndarray:
+    """The host twin's lanes (a copy of the JAX package's): the packed
+    twin at the origin, else the dense twin of the unpacked cells at
+    (row0, 32·wordcol0)."""
+    words = words.astype(np.uint32)
+    if row0 == wordcol0 == 0:
+        return digest.digest_packed_np(words, width)
+    return digest.digest_dense_np(bitpack.unpack_np(words), (row0, 32 * wordcol0), width)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,width,row0,wordcol0,fill", DIGEST_CASES,
+                         ids=[c[0] for c in DIGEST_CASES])
+def test_digest_kernel_matches_plain_and_host_twin(name, shape, width, row0, wordcol0, fill):
+    _need_gpu()
+    x = _digest_case(shape, fill, seed=len(name))
+    before = digest.digest_packed.launches
+    got = digest.digest_packed(x, width, row0, wordcol0)
+    plain = digest._digest_packed(x, width, row0, wordcol0)
+    torch.cuda.synchronize()
+    assert digest.digest_packed.launches == before + 1
+    assert got.dtype == torch.int64 and got.shape == (2,) and got.device == x.device
+    assert torch.equal(got, plain), (name, got.tolist(), plain.tolist())
+    lanes = got.cpu().numpy()
+    np.testing.assert_array_equal(
+        lanes.astype(np.uint32), _digest_twin(x.cpu().numpy(), width, row0, wordcol0))
+    if fill == "zeros":
+        assert lanes.tolist() == [0, 0]
+
+
+@pytest.mark.cuda
+def test_digest_planes_on_card_matches_plain_and_host_twin():
+    _need_gpu()
+    planes = bitpack.words_from_numpy(_words((2, 33, 6), 9), "cuda")
+    before = digest.digest_packed.launches
+    got = digest.digest_planes(planes, 192)
+    assert digest.digest_packed.launches == before + 2
+    plain = sum(digest._digest_packed(planes[k], 192, 0, 0) << k for k in range(2)) & 0xFFFFFFFF
+    assert torch.equal(got, plain)
+    np.testing.assert_array_equal(
+        got.cpu().numpy().astype(np.uint32),
+        digest.digest_planes_np(planes.cpu().numpy().astype(np.uint32), 192))
+
+
+@pytest.mark.cuda
+def test_digest_kernel_makes_no_host_sync():
+    """Under the sync debug mode's "error" any synchronizing call raises:
+    the kernel's call, the ledger's events and the zeroed lanes make none."""
+    _need_gpu()
+    x = bitpack.words_from_numpy(_words((256, 64), 3), "cuda")
+    want = digest.digest_packed(x, 2048)  # loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [digest.digest_packed(x, 2048) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for lanes in got:
+        assert torch.equal(lanes, want)
+
+
+@pytest.mark.cuda
+def test_digest_launches_count_each_call():
+    _need_gpu()
+    x = bitpack.words_from_numpy(_words((40, 12), 4), "cuda")
+    before = digest.digest_packed.launches
+    for i in range(1, 4):
+        digest.digest_packed(x, 384)
+        assert digest.digest_packed.launches == before + i
+
+
+@pytest.mark.cuda
+def test_digest_kernel_rejects_bad_tensors():
+    _need_gpu()
+    x = bitpack.words_from_numpy(_words((8, 4), 0), "cuda")
+    before = digest.digest_packed.launches
+    with pytest.raises(ValueError, match="int32"):
+        digest.digest_packed(x.to(torch.int64), 128)
+    with pytest.raises(ValueError, match="2-D"):
+        digest.digest_packed(x[None], 128)
+    with pytest.raises(ValueError, match="inner stride"):
+        digest.digest_packed(x[:, ::2], 128)
+    assert digest.digest_packed.launches == before
 
 
 @pytest.mark.cuda

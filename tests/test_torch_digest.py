@@ -96,3 +96,69 @@ def test_value_merge_and_format_match():
     assert tdig.value(lanes) == jdig.value(lanes) == 0x0123456789ABCDEF
     assert tdig.value(torch.tensor([0x89ABCDEF, 0x01234567])) == 0x0123456789ABCDEF
     assert tdig.format_digest(255) == jdig.format_digest(255) == "00000000000000ff"
+
+
+# The card tests' shapes (tests/test_torch_cuda.py DIGEST_CASES) that the
+# cases above do not hold: a width that is not a multiple of 32, an origin
+# whose (r + row0)·width passes 2³², all zeros, all ones, a strided view.
+# Here the plain version and the host twins the card tests compare with
+# meet the JAX package, so kernel = plain = twin there reaches it too.
+@pytest.mark.parametrize(
+    "h,nw,width,row0,wordcol0,fill",
+    [(5, 4, 100, 3, 1, "soup"), (4, 8, 65536, 65535, 2040, "soup"),
+     (16, 8, 256, 0, 0, "zeros"), (16, 8, 256, 0, 0, "ones"), (9, 7, 416, 3, 2, "view")],
+)
+def test_plain_and_host_twins_match_jax_at_the_card_shapes(h, nw, width, row0, wordcol0, fill):
+    if fill == "view":
+        big = _words(2 * h + 3, nw + 5, seed=h)
+        t = torch.from_numpy(big.view(np.int32))[3::2, 2:2 + nw]
+        w = big[3::2, 2:2 + nw]
+    else:
+        w = _words(h, nw, seed=h * nw)
+        w[:] = {"soup": w, "zeros": 0, "ones": 0xFFFFFFFF}[fill]
+        t = tbp.words_from_numpy(w)
+    want = np.asarray(jdig.digest_packed(jnp.asarray(w), width, row0, wordcol0))
+    np.testing.assert_array_equal(_lanes(tdig.digest_packed(t, width, row0, wordcol0)), want)
+    dense = tbp.unpack_np(np.ascontiguousarray(w))
+    origin = (row0, 32 * wordcol0)
+    np.testing.assert_array_equal(tdig.digest_dense_np(dense, origin, width), want)
+    np.testing.assert_array_equal(jdig.digest_dense_np(dense, origin, width), want)
+    if row0 == wordcol0 == 0:
+        np.testing.assert_array_equal(tdig.digest_packed_np(w, width), want)
+        np.testing.assert_array_equal(jdig.digest_packed_np(w, width), want)
+    if fill == "zeros":
+        assert want.tolist() == [0, 0]
+
+
+def test_cpu_tensor_takes_the_plain_path(monkeypatch):
+    """A CPU tensor never reaches the kernel: no library is loaded and the
+    kernel's launch count stays where it was."""
+
+    def no_library():
+        raise AssertionError("a CPU tensor loaded the digest kernel's library")
+
+    monkeypatch.setattr(tdig, "_launcher", no_library)
+    monkeypatch.setattr(tdig, "_launch", no_library)
+    w = _words(12, 3, seed=5)
+    before = tdig.digest_packed.launches
+    got = tdig.digest_packed(tbp.words_from_numpy(w), 96, 2, 1)
+    assert tdig.digest_packed.launches == before
+    np.testing.assert_array_equal(_lanes(got), np.asarray(jdig.digest_packed(jnp.asarray(w), 96, 2, 1)))
+
+
+def test_ledger_key_and_cost_of_a_digest(monkeypatch):
+    """Each call is the ledger's program ``("packed", h, words, width)`` of
+    family ``digest``, priced as one read of the words, billing no
+    compile; the program it wraps on the CPU is the plain version."""
+    seen = []
+
+    def record(family, key, fn, *, cost=None, compiles=True):
+        seen.append((family, key, fn, cost, compiles))
+        return fn
+
+    monkeypatch.setattr(tdig, "registered_jit", record)
+    w = tbp.words_from_numpy(_words(24, 5, seed=6))
+    tdig.digest_packed(w, 160)
+    tdig.digest_planes(torch.stack([w, w]), 160, 1, 2)
+    assert seen == [("digest", ("packed", 24, 5, 160), tdig._digest_packed,
+                     {"bytes": 24.0 * 5 * 4}, False)] * 3
